@@ -6,21 +6,32 @@ Drives ``tasksrunner_torch`` end to end on the card and fails (non-zero
 exit, traceback) at the first phase that does not hold:
 
 1. device: the card's name and power limit, the CUDA version;
-2. build: every kernel of the path compiled with nvcc from ``csrc/``;
+2. build: every kernel of the paths compiled with nvcc from ``csrc/``,
+   one nvcc per source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
-   version on the card, at the shapes the serving path and the bench
-   config give it, in bf16 and f32;
-4. forward: the model with the flash kernel against the same params with
+   version on the card, at the shapes the serving and training paths
+   and the bench config give it, in bf16 and f32: the forward, and the
+   backward with Δ precomputed and fused;
+4. matmul: the f32-activation product on the card against the CPU's;
+5. gradient: ``FlashAttention``'s gradients against autograd through
+   the einsum core;
+6. forward: the model with the flash kernel against the same params with
    ``TASKSRUNNER_FLASH=0``, at the served and the bench config, with one
    kernel launch per layer;
-5. serve: the scorer's HTTP server on 127.0.0.1 answering concurrent
+7. serve: the scorer's HTTP server on 127.0.0.1 answering concurrent
    ``POST /score`` requests, with the launch counts set to 0 just before
    and read just after;
-6. times: kernel, plain version, the PyTorch library call
-   (``scaled_dot_product_attention``, timed here only as a yardstick) and
-   the bound, from CUDA events; the forward's time per bucket;
-7. profile: the forward's device busy share and largest kernels, from
-   ``torch.profiler``.
+8. train: SGD steps at the served config (loss falls; one forward and
+   one backward launch per layer and step), one step with the flash core
+   against one with the einsum core (and again with the fused-Δ
+   backward), then steps at the bench config, with the launch counts
+   set to 0 just before and read just after;
+9. times: kernel, plain version, the PyTorch library call
+   (``scaled_dot_product_attention`` and its backward, timed here only
+   as a yardstick) and the bound, from CUDA events; the forward's time
+   per bucket and the train step's at both configs;
+10. profile: the forward's and the train step's device busy share and
+    largest kernels, from ``torch.profiler``.
 
 Earlier lines are JSON records; the line before the last holds every
 kernel's numbers; the last line is
@@ -30,7 +41,9 @@ kernel's numbers; the last line is
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -43,7 +56,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from tasksrunner_torch import _kernels, flash, service  # noqa: E402
+from tasksrunner_torch import _kernels, flash, model, service, train  # noqa: E402
 from tasksrunner_torch.model import ModelConfig, forward, init_params  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
@@ -55,6 +68,7 @@ SERVED = ModelConfig(n_classes=len(service.PRIORITY_LABELS))
 BENCH = ModelConfig(vocab=32768, seq_len=512, d_model=1024, n_heads=16,
                     d_ff=4096, n_layers=8)
 BENCH_BATCH = 32
+SERVED_BATCH = 8
 
 # the plain version rounds p to bf16 against the final row max, the kernel
 # against the running max of the key tiles seen so far: the two differ by
@@ -62,8 +76,22 @@ BENCH_BATCH = 32
 # by one bf16 step of O (2^-7 relative); LSE is f32 sums in another order
 O_ATOL, O_RTOL = 1e-2, 1e-2
 LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
-# tests/test_ml_extension.py's tolerance between the two attention cores
+# the backward kernels round at the plain version's points; f32 sums in
+# another order can move one P or dS term across a bf16 rounding boundary
+# (2^-8 of that term), and a bf16 output by one bf16 step (2^-7 relative).
+# dQ is summed in one order by its own kernel, so the result does not
+# change from run to run
+GRAD_ATOL, GRAD_RTOL = 1e-2, 1e-2
+# tests/test_ml_extension.py's tolerance between the two attention cores,
+# for logits and for the attention gradients of its sin-sum loss
 LOGITS_TOL = 2e-2
+SIN_GRAD_TOL = 1e-2
+# __graft_entry__.py's dryrun limits between two train steps
+LOSS_TOL, LEAF_TOL = 1e-2, 2e-2
+# SGD rate of the served-config train phase: at 0.1 the JAX step itself
+# diverges on this model (and the port with it), at 0.01 both fall
+SERVED_LR = 0.01
+BWD_VARIANTS = {"flash_bwd_delta": "precompute", "flash_bwd_fused": "fused"}
 
 KERNEL_CASES = [  # (b, s, h, d)
     (1, 8, 2, 16),        # TINY
@@ -73,6 +101,8 @@ KERNEL_CASES = [  # (b, s, h, d)
     (BENCH_BATCH, 512, 16, 64),  # bench config
     (2, 100, 4, 64),      # ragged last tile
     (1, 100, 2, 128),
+    (2, 130, 4, 64),
+    (1, 130, 2, 128),
 ]
 
 
@@ -103,18 +133,51 @@ def cuda_ms(fn, *, warmup: int = 3, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def attention_bound(b: int, s: int, h: int, d: int, itemsize: int) -> tuple[float, str]:
-    """Least time for the forward on an H100: q, k, v read once, o and
-    lse written once, against the two products' 4·b·h·s²·d operations."""
-    moved = 4 * b * s * h * d * itemsize + b * h * s * 4
-    ops = 4 * b * h * s * s * d
+def _bound(moved: int, ops: int) -> tuple[float, str]:
+    """(ms, what sets it): the larger of bytes over the H100's memory
+    rate and bf16 operations over its tensor-core rate."""
     t_bytes, t_ops = moved / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def qkv(gen, b, s, h, d, dtype):
+def attention_bound(b: int, s: int, h: int, d: int, itemsize: int) -> tuple[float, str]:
+    """Least time for the forward on an H100: q, k, v read once, o and
+    lse written once, against the two products' 4·b·h·s²·d operations."""
+    return _bound(4 * b * s * h * d * itemsize + b * h * s * 4, 4 * b * h * s * s * d)
+
+
+def attention_bwd_bound(b: int, s: int, h: int, d: int, itemsize: int,
+                        fused: bool) -> tuple[float, str]:
+    """Least time for the backward on an H100: q, k, v, dO (and O when
+    Δ is fused) read once, LSE (and Δ when precomputed) read once, dq,
+    dk, dv written once, against the five products' 10·b·h·s²·d
+    operations."""
+    moved = (7 + fused) * b * s * h * d * itemsize + (2 - fused) * b * h * s * 4
+    return _bound(moved, 10 * b * h * s * s * d)
+
+
+def qkv(gen, b, s, h, d, dtype, n=3):
     return [torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-            for _ in range(3)]
+            for _ in range(n)]
+
+
+@contextlib.contextmanager
+def bwd_variant(variant: str):
+    """``TASKSRUNNER_FLASH_BWD_DELTA`` set for the duration of a block."""
+    os.environ["TASKSRUNNER_FLASH_BWD_DELTA"] = variant
+    try:
+        yield
+    finally:
+        os.environ.pop("TASKSRUNNER_FLASH_BWD_DELTA")
+
+
+def reset_counts() -> None:
+    flash.launches = flash.bwd_launches = flash.bwd_fused_launches = 0
+
+
+def counts() -> dict:
+    return {"flash_fwd": flash.launches, "flash_bwd_delta": flash.bwd_launches,
+            "flash_bwd_fused": flash.bwd_fused_launches}
 
 
 # -- phases -----------------------------------------------------------------
@@ -132,15 +195,16 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     started = time.monotonic()
-    _kernels.build(["flash_fwd"])
-    flash._kernel()  # load and bind
-    emit({"phase": "build", "kernels": ["flash_fwd"],
-          "seconds": time.monotonic() - started})
+    names = ["flash_fwd", "flash_bwd"]
+    _kernels.build(names)
+    for name in names:
+        flash._kernel(name)  # load and bind
+    emit({"phase": "build", "kernels": names, "seconds": time.monotonic() - started})
 
 
-def phase_kernel_vs_plain() -> float:
+def phase_kernel_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
+    worst = dict.fromkeys(["flash_fwd", *BWD_VARIANTS], 0.0)
     for b, s, h, d in KERNEL_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv(gen, b, s, h, d, dtype)
@@ -160,7 +224,22 @@ def phase_kernel_vs_plain() -> float:
                   "max_abs_err_o": err_o.max().item(),
                   "max_abs_err_lse": err_lse.max().item(), "ok": ok})
             check(ok, f"flash_fwd disagrees with its plain version at {(b, s, h, d)} {dtype}")
-            worst = max(worst, err_o.max().item())
+            worst["flash_fwd"] = max(worst["flash_fwd"], err_o.max().item())
+            (dout,) = qkv(gen, b, s, h, d, dtype, n=1)
+            want = flash.flash_bwd_reference(q, k, v, out, lse, dout, scale)
+            for name, variant in BWD_VARIANTS.items():
+                with bwd_variant(variant):
+                    got = flash.flash_bwd(q, k, v, out, lse, dout, scale)
+                torch.cuda.synchronize()
+                errs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+                ok = all(g.dtype == dtype and bool(torch.isfinite(g).all())
+                         and bool((e <= GRAD_ATOL + GRAD_RTOL * w.float().abs()).all())
+                         for g, w, e in zip(got, want, errs))
+                emit({"phase": "kernel_vs_plain", "kernel": name,
+                      "shape": [b, s, h, d], "dtype": str(dtype).split(".")[-1],
+                      "max_abs_err_dq_dk_dv": [e.max().item() for e in errs], "ok": ok})
+                check(ok, f"{name} disagrees with its plain version at {(b, s, h, d)} {dtype}")
+                worst[name] = max(worst[name], *(e.max().item() for e in errs))
     # what the kernel was not built for is refused, not run
     try:
         flash.flash_fwd(*qkv(gen, 1, 8, 2, 48, torch.bfloat16), 0.1)
@@ -169,6 +248,49 @@ def phase_kernel_vs_plain() -> float:
     else:
         raise AssertionError("flash_fwd accepted d_head 48")
     return worst
+
+
+def phase_matmul() -> dict:
+    """The f32-activation product on the card against the same product
+    on the CPU: the repaired path keeps the f32 accumulator; a bf16
+    product cast to f32 afterwards (the path before the repair) is off
+    by a bf16 rounding."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.randn(8, 32, 128, generator=gen)
+    b = torch.randn(128, 512, generator=gen) / 128 ** 0.5
+    os.environ["TASKSRUNNER_ACT_F32"] = "1"
+    try:
+        want = model._matmul(a, b)
+        got = model._matmul(a.cuda(), b.cuda()).cpu()
+    finally:
+        os.environ.pop("TASKSRUNNER_ACT_F32")
+    stored_bf16 = torch.matmul(a.cuda().bfloat16(), b.cuda().bfloat16()).float().cpu()
+    scale = want.abs().max().item()
+    record = {"phase": "matmul", "dtype": str(got.dtype).split(".")[-1],
+              "rel_err": (got - want).abs().max().item() / scale,
+              "rel_err_bf16_stored": (stored_bf16 - want).abs().max().item() / scale}
+    record["ok"] = got.dtype == torch.float32 and record["rel_err"] <= 1e-5
+    emit(record)
+    check(record["ok"], "the f32-activation product lost its f32 accumulator")
+    return record
+
+
+def phase_gradient() -> None:
+    """FlashAttention's dq, dk, dv against autograd through the einsum
+    core, with tests/test_ml_extension.py's sin-sum loss and tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for b, s, h, d in ((2, 64, 4, 32), (SERVED_BATCH, 32, 4, 32), (2, 130, 4, 64)):
+        leaves = [x.requires_grad_() for x in qkv(gen, b, s, h, d, torch.float32)]
+        for name, variant in BWD_VARIANTS.items():
+            with bwd_variant(variant):
+                got = torch.autograd.grad(flash.flash_attention(*leaves).sin().sum(), leaves)
+            want = torch.autograd.grad(model._einsum_attention(*leaves).sin().sum(), leaves)
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ok = all(bool(((g - w).abs() <= SIN_GRAD_TOL + SIN_GRAD_TOL * w.abs()).all())
+                     for g, w in zip(got, want))
+            emit({"phase": "gradient", "kernel": name, "shape": [b, s, h, d],
+                  "max_abs_err": err, "ok": ok})
+            check(ok, f"{name}: flash gradients disagree with the einsum core's")
 
 
 def _logits(params, tokens, cfg, flash_on: bool) -> torch.Tensor:
@@ -184,7 +306,7 @@ def _logits(params, tokens, cfg, flash_on: bool) -> torch.Tensor:
 
 def phase_forward() -> None:
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, cfg, batch in (("served", SERVED, 8), ("bench", BENCH, BENCH_BATCH)):
+    for name, cfg, batch in (("served", SERVED, SERVED_BATCH), ("bench", BENCH, BENCH_BATCH)):
         params = init_params(cfg, 0, "cuda")
         tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
                                device="cuda", dtype=torch.int32)
@@ -281,9 +403,11 @@ async def _serve(n_requests: int) -> dict:
 
 
 def phase_serve() -> int:
-    flash.launches = 0
+    reset_counts()
     result = asyncio.run(_serve(n_requests=32))
     launches = flash.launches
+    check(counts()["flash_bwd_delta"] == counts()["flash_bwd_fused"] == 0,
+          "the served path launched a backward kernel")
     batches = sum(result["stats"]["batches"].values())
     warmups = len(result["stats"]["buckets"])
     expected = SERVED.n_layers * (warmups + batches)
@@ -292,6 +416,80 @@ def phase_serve() -> int:
     check(launches > 0, "the served path launched no flash kernel")
     check(launches == expected, f"flash launches {launches} != {expected}")
     return launches
+
+
+def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool):
+    """One train step from a copy of ``params``: (new params, loss)."""
+    os.environ["TASKSRUNNER_FLASH"] = "1" if flash_on else "0"
+    try:
+        copy = model._with_leaves([p.clone() for p in model._leaves(params)])
+        new, loss = model.make_train_step(cfg, learning_rate=lr)(copy, tokens, labels)
+        torch.cuda.synchronize()
+        return new, loss
+    finally:
+        os.environ.pop("TASKSRUNNER_FLASH")
+
+
+def _compare_steps(config: str, cfg: ModelConfig, batch: int) -> None:
+    """One step with the flash core (each backward variant) against one
+    with the einsum core from the same params, at a rate where a wrong
+    gradient shows in the leaves, held to the dryrun's limits."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = init_params(cfg, 1, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+    want, want_loss = _one_step(cfg, params, tokens, labels, 0.1, flash_on=False)
+    for name, variant in BWD_VARIANTS.items():
+        with bwd_variant(variant):
+            got, got_loss = _one_step(cfg, params, tokens, labels, 0.1, flash_on=True)
+        errs = [(g - w).abs().max().item()
+                for g, w in zip(model._leaves(got), model._leaves(want))]
+        moved = max((g - p).abs().max().item()
+                    for g, p in zip(model._leaves(got), model._leaves(params)))
+        ok = (abs(got_loss.item() - want_loss.item()) <= LOSS_TOL and max(errs) <= LEAF_TOL
+              and all(bool(torch.isfinite(g).all()) for g in model._leaves(got))
+              and moved > 1e-3)
+        emit({"phase": "train", "config": config, "batch": batch,
+              "step": "flash vs einsum", "kernel": name, "learning_rate": 0.1,
+              "loss_flash": got_loss.item(), "loss_einsum": want_loss.item(),
+              "max_abs_err_leaves": max(errs), "max_leaf_move": moved, "ok": ok})
+        check(ok, f"{config} {name}: the flash train step disagrees with the einsum one")
+        del got
+
+
+def phase_train() -> dict:
+    """The training path: counts set to 0 just before, read just after."""
+    reset_counts()
+    steps = 10
+    before = counts()
+    losses = train.train(SERVED, steps, SERVED_BATCH, seed=0, learning_rate=SERVED_LR)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and launched == {"flash_fwd": steps * SERVED.n_layers,
+                           "flash_bwd_delta": steps * SERVED.n_layers,
+                           "flash_bwd_fused": 0})
+    emit({"phase": "train", "config": "served", "steps": steps, "batch": SERVED_BATCH,
+          "learning_rate": SERVED_LR, "losses": losses, "launches": launched,
+          "n_layers": SERVED.n_layers, "ok": ok})
+    check(ok, f"served training: losses {losses}, launches {launched}")
+
+    _compare_steps("served", SERVED, SERVED_BATCH)
+
+    steps = 3
+    before = counts()
+    losses = train.train(BENCH, steps, BENCH_BATCH, seed=0)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    ok = (all(math.isfinite(x) for x in losses)
+          and launched["flash_bwd_delta"] == steps * BENCH.n_layers)
+    emit({"phase": "train", "config": "bench", "steps": steps, "batch": BENCH_BATCH,
+          "losses": losses, "launches": launched, "n_layers": BENCH.n_layers, "ok": ok})
+    check(ok, f"bench training: losses {losses}, launches {launched}")
+    _compare_steps("bench", BENCH, BENCH_BATCH)
+    final = counts()
+    for name, n in final.items():
+        check(n > 0, f"the training path launched {name} no time")
+    return final
 
 
 def _time_attention(b, s, h, d) -> dict:
@@ -308,12 +506,46 @@ def _time_attention(b, s, h, d) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _time_attention_bwd(b, s, h, d) -> dict:
+    """Each backward variant's wrapper, the plain version, and the
+    library yardstick: scaled_dot_product_attention's forward and
+    backward less its forward, on the same inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, dout = qkv(gen, b, s, h, d, torch.bfloat16, n=4)
+    scale = d ** -0.5
+    out, lse = flash.flash_fwd(q, k, v, scale)
+    plain_ms = cuda_ms(lambda: flash.flash_bwd_reference(q, k, v, out, lse, dout, scale),
+                       reps=5)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+    sdpa_fwd_ms = cuda_ms(sdpa)
+    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dout_t))
+    timed = {}
+    for name, variant in BWD_VARIANTS.items():
+        with bwd_variant(variant):
+            ms = cuda_ms(lambda: flash.flash_bwd(q, k, v, out, lse, dout, scale))
+        bound_ms, bound_by = attention_bwd_bound(b, s, h, d, q.element_size(),
+                                                 fused=variant == "fused")
+        timed[name] = {"shape": [b, s, h, d], "dtype": "bfloat16", "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+                       "library_fwd_bwd_ms": sdpa_fwd_bwd_ms, "library_fwd_ms": sdpa_fwd_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+    return timed
+
+
 def phase_times() -> dict:
     timed = {}
-    for shape in [(1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32),
-                  (BENCH_BATCH, 512, 16, 64)]:
-        timed[shape] = _time_attention(*shape)
-        emit({"phase": "times", "kernel": "flash_fwd", **timed[shape]})
+    shapes = [(1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32), (BENCH_BATCH, 512, 16, 64)]
+    for shape in shapes:
+        timed[shape] = {"flash_fwd": _time_attention(*shape)}
+        emit({"phase": "times", "kernel": "flash_fwd", **timed[shape]["flash_fwd"]})
+        timed[shape].update(_time_attention_bwd(*shape))
+        for name in BWD_VARIANTS:
+            emit({"phase": "times", "kernel": name, **timed[shape][name]})
     gen = torch.Generator(device="cuda").manual_seed(5)
     for name, cfg, batches in (("served", SERVED, (1, 2, 4, 8, 16, 32)),
                                ("bench", BENCH, (BENCH_BATCH,))):
@@ -325,45 +557,67 @@ def phase_times() -> dict:
                 ms = cuda_ms(lambda: forward(params, tokens, cfg=cfg), reps=7, inner=5)
             emit({"phase": "times", "forward": name, "batch": batch, "ms": ms})
         del params
-    return timed[(32, 32, 4, 32)]
+    for name, cfg, batch in (("served", SERVED, SERVED_BATCH), ("served", SERVED, 32),
+                             ("bench", BENCH, BENCH_BATCH)):
+        params = init_params(cfg, 0, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+        step = model.make_train_step(cfg)
+        ms = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
+        emit({"phase": "times", "train_step": name, "batch": batch, "ms": ms})
+        del params
+    return {"flash_fwd": timed[(32, 32, 4, 32)]["flash_fwd"],
+            **{name: timed[(BENCH_BATCH, 512, 16, 64)][name] for name in BWD_VARIANTS}}
 
 
-def phase_profile() -> None:
-    """Device busy share of the forward (summed kernel time over the
-    host wall time of a synchronised window) and its largest kernels,
-    from torch.profiler. The profiler adds host time, so the share is
-    a lower bound."""
+def _profile(fn, n: int) -> dict:
+    """Device busy time (summed kernel time over the host wall time of a
+    synchronised window of ``n`` calls) and the largest kernels, from
+    torch.profiler. The profiler adds host time, so the share is a lower
+    bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        started = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - started
+    # device-side events only: an aten op also carries the time of the
+    # kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {"calls": n, "wall_ms_per_call": 1e3 * wall_s / n,
+            "device_busy_ms_per_call": 1e3 * busy_s / n,
+            "device_busy_share": busy_s / wall_s if busy_s else None,
+            "top_ms_per_call": {e.key[:80]: e.self_device_time_total / 1e3 / n
+                                for e in top}}
+
+
+def phase_profile() -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     for name, cfg, batch, n in (("served", SERVED, 32, 20),
                                 ("bench", BENCH, BENCH_BATCH, 5)):
         params = init_params(cfg, 0, "cuda")
         tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
                                device="cuda", dtype=torch.int32)
-        with torch.inference_mode():
-            for _ in range(3):
+        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+
+        def fwd():
+            with torch.inference_mode():
                 forward(params, tokens, cfg=cfg)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                started = time.perf_counter()
-                for _ in range(n):
-                    forward(params, tokens, cfg=cfg)
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - started
-        # device-side events only: an aten op also carries the time of
-        # the kernels it launched
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_s = sum(e.self_device_time_total for e in events) / 1e6
-        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-        emit({"phase": "profile", "forward": name, "batch": batch, "forwards": n,
-              "wall_ms_per_forward": 1e3 * wall_s / n,
-              "device_busy_ms_per_forward": 1e3 * busy_s / n,
-              "device_busy_share": busy_s / wall_s if busy_s else None,
-              "top_ms_per_forward": {e.key[:80]: e.self_device_time_total / 1e3 / n
-                                     for e in top}})
+
+        emit({"phase": "profile", "forward": name, "batch": batch, **_profile(fwd, n)})
+        step = model.make_train_step(cfg)
+        emit({"phase": "profile", "train_step": name, "batch": batch,
+              **_profile(lambda: step(params, tokens, labels), n)})
         del params
 
 
@@ -376,20 +630,27 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     worst_err = phase_kernel_vs_plain()
+    phase_matmul()
+    phase_gradient()
     phase_forward()
-    launches = phase_serve()
-    served = phase_times()
+    launches = {"flash_fwd": phase_serve()}
+    trained = phase_train()
+    launches.update({name: trained[name] for name in BWD_VARIANTS})
+    timed = phase_times()
     phase_profile()
+    sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",
+                             "tasksrunner/ml/flash.py:130"),
+               "flash_bwd_delta": ("tasksrunner_torch/csrc/flash_bwd.cu",
+                                   "tasksrunner/ml/flash.py:189"),
+               "flash_bwd_fused": ("tasksrunner_torch/csrc/flash_bwd.cu",
+                                   "tasksrunner/ml/flash.py:168")}
     print(smi, flush=True)
     emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tasksrunner_torch/csrc/flash_fwd.cu",
-        "replaces": "tasksrunner/ml/flash.py:130",
-        "launches": launches, "max_abs_err": worst_err,
-        "ms": served["ms"], "plain_ms": served["plain_ms"],
-        "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"], "shape": served["shape"],
-        "dtype": served["dtype"]}]})
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": worst_err[name],
+        **{key: timed[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "shape", "dtype")}}
+        for name, (source, replaces) in sources.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,9 +9,12 @@ each counterpart is easy to find:
 * ``envflag``     – the ``TASKSRUNNER_*`` flags the scorer reads
 * ``errors``      – ``SaturatedError``
 * ``metrics``     – the part of ``MetricsRegistry`` the batcher calls
-* ``model``       – ``tasksrunner/ml/model.py``: config, params, forward
-* ``flash``       – ``tasksrunner/ml/flash.py`` forward, with its CUDA
-  kernel in ``csrc/flash_fwd.cu``, built by ``_kernels``
+* ``model``       – ``tasksrunner/ml/model.py``: config, params, forward,
+  loss and the single-device SGD step
+* ``train``       – a few SGD steps on one seeded batch (bench.py's loop)
+* ``flash``       – ``tasksrunner/ml/flash.py`` forward and backward, with
+  their CUDA kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``,
+  built by ``_kernels``
 * ``batching``    – ``tasksrunner/ml/batching.py``: the micro-batcher
 * ``app``         – a standard-library HTTP front end for one app
 * ``service``     – ``tasksrunner/ml/service.py``: the scorer served

@@ -39,110 +39,24 @@
 // to the running max of the tiles seen so far rather than the final max, so
 // the two differ at the level of one bf16 rounding of p (relative 2^-8).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;              // query rows per block
-constexpr int BLOCK_N = 64;              // keys per streamed K/V tile
-constexpr int WARPS = BLOCK_M / 16;      // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;                   // bf16 row padding in shared memory
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BLOCK_M = TILE;  // query rows per block
+constexpr int BLOCK_N = TILE;  // keys per streamed K/V tile
 
 struct Strides {
-  // element strides of the b, s, h axes of q, k, v, o (the d axis is 1)
-  int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
+  Axis q, k, v, o;
 };
 
 template <int D>
 struct Tiles {
-  static constexpr int ROW = D + PAD;            // Q and K tiles: [row][d]
-  static constexpr int VT_ROW = BLOCK_N + PAD;   // V tile transposed: [d][key]
+  static constexpr int ROW = Rows<D>::ROW;        // Q and K tiles: [row][d]
+  static constexpr int VT_ROW = Rows<D>::T_ROW;   // V tile transposed: [d][key]
   static constexpr int BYTES =
       (BLOCK_M * ROW + BLOCK_N * ROW + D * VT_ROW) * (int)sizeof(__nv_bfloat16);
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// eight consecutive elements, rounded to bf16, as one 16-byte vector
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ uint4 load8(const float* p) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + 64) of one (batch, head) slice into a [64][D + PAD] tile;
-// rows at or past s are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const T* src,
-                                          int64_t row_stride, int row0, int s) {
-  constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < 64 * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    const uint4 v = row0 + r < s ? load8(src + (row0 + r) * row_stride + col)
-                                 : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(dst + r * Tiles<D>::ROW + col) = v;
-  }
-}
-
-// the same rows stored transposed, as a [D][64 + PAD] tile
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, const T* src,
-                                            int64_t row_stride, int row0, int s) {
-  constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < 64 * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    const uint4 v = row0 + r < s ? load8(src + (row0 + r) * row_stride + col)
-                                 : make_uint4(0u, 0u, 0u, 0u);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * Tiles<D>::VT_ROW + r] = e[i];
-  }
-}
-
-// c += a . b for one m16n8k16 tile: a 16x16 row-major, b 16x8, c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -159,11 +73,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
 
-  const T* qp = q + batch * st.qb + head * st.qh;
-  const T* kp = k + batch * st.kb + head * st.kh;
-  const T* vp = v + batch * st.vb + head * st.vh;
+  const T* qp = q + batch * st.q.b + head * st.q.h;
+  const T* kp = k + batch * st.k.b + head * st.k.h;
+  const T* vp = v + batch * st.v.b + head * st.v.h;
 
-  load_tile<T, D>(q_tile, qp, st.qs, m0, s);
+  load_tile<T, D>(q_tile, qp, st.q.s, m0, s);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16-wide slice of d
@@ -171,12 +85,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   {
     const __nv_bfloat16* row = q_tile + (warp * 16 + g) * Tiles<D>::ROW + 2 * t;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = ld32(row + kk * 16);
-      qf[kk][1] = ld32(row + 8 * Tiles<D>::ROW + kk * 16);
-      qf[kk][2] = ld32(row + kk * 16 + 8);
-      qf[kk][3] = ld32(row + 8 * Tiles<D>::ROW + kk * 16 + 8);
-    }
+    for (int kk = 0; kk < D / 16; ++kk) a_frag<Tiles<D>::ROW>(qf[kk], row, kk);
   }
 
   // rows g and g + 8 of the warp's slice: running max, this thread's share of
@@ -189,8 +98,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int n0 = 0; n0 < s; n0 += BLOCK_N) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(k_tile, kp, st.ks, n0, s);
-    load_tile_t<T, D>(vt_tile, vp, st.vs, n0, s);
+    load_tile<T, D>(k_tile, kp, st.k.s, n0, s);
+    load_tile_t<T, D>(vt_tile, vp, st.v.s, n0, s);
     __syncthreads();
 
     // S = q . k^T for 16 rows x 64 keys: eight n-tiles of 8 keys
@@ -261,7 +170,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // O = acc / l in the IO dtype, LSE = m + log l in f32
-  T* op = o + batch * st.ob + head * st.oh;
+  T* op = o + batch * st.o.b + head * st.o.h;
   float* lp = lse + ((int64_t)batch * h + head) * s;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -270,7 +179,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= s) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store2(op + row * st.os + 8 * j + 2 * t, acc[j][2 * r] / l, acc[j][2 * r + 1] / l);
+      store2(op + row * st.o.s + 8 * j + 2 * t, acc[j][2 * r] / l, acc[j][2 * r + 1] / l);
     if (t == 0) lp[row] = m_run[r] + logf(l);
   }
 }
@@ -279,11 +188,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int s, int h, const Strides& st, float scale, cudaStream_t stream) {
   constexpr int bytes = Tiles<D>::BYTES;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = allow_smem(flash_fwd_kernel<T, D>, bytes);
+  if (err) return err;
   const dim3 grid((s + BLOCK_M - 1) / BLOCK_M, h, b);
   flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -312,9 +218,10 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, void* 
 extern "C" int tr_flash_fwd(const void* q, const void* k, const void* v, void* o,
                             void* lse, int b, int s, int h, int d, int is_bf16,
                             const int64_t* strides, float scale, void* stream) {
-  const Strides st{strides[0], strides[1], strides[2], strides[3],
-                   strides[4], strides[5], strides[6], strides[7],
-                   strides[8], strides[9], strides[10], strides[11]};
+  const Strides st{{strides[0], strides[1], strides[2]},
+                   {strides[3], strides[4], strides[5]},
+                   {strides[6], strides[7], strides[8]},
+                   {strides[9], strides[10], strides[11]}};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, o, lse, b, s, h, st, scale, cs)
                  : dispatch<float>(d, q, k, v, o, lse, b, s, h, st, scale, cs);

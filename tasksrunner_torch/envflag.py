@@ -20,6 +20,7 @@ _FALSE = frozenset({"0", "false", "off", "no"})
 DECLARED = frozenset({
     "TASKSRUNNER_FLASH",           # bool, on: the flash kernel as attention core
     "TASKSRUNNER_ACT_F32",         # bool, off: f32 activations instead of bf16
+    "TASKSRUNNER_FLASH_BWD_DELTA",  # "fused": Δ in the backward kernel (else precomputed)
     "TASKSRUNNER_ML_BATCHING",     # bool, on: micro-batching (off: batch of one)
     "TASKSRUNNER_ML_MAX_BATCH",    # int
     "TASKSRUNNER_ML_MAX_DELAY_MS",  # float

@@ -1,18 +1,22 @@
-"""Flash-attention forward: the port of ``tasksrunner/ml/flash.py``'s
-forward kernel (``_fwd_kernel``, launched by ``_flash_fwd``).
+"""Flash attention: the port of ``tasksrunner/ml/flash.py``'s forward
+kernel (``_fwd_kernel``, launched by ``_flash_fwd``) and its two backward
+kernels (``_bwd_kernel_delta`` and ``_bwd_kernel``, launched by
+``_flash_bwd_call``).
 
-On a CUDA tensor :func:`flash_fwd` launches the hand-written kernel in
-``csrc/flash_fwd.cu`` (mma.sync bf16 with f32 accumulation, K/V streamed
-through shared memory with an online softmax; its design and bound are
-in the source). On a CPU tensor it runs :func:`flash_fwd_reference`, the
-plain PyTorch version that repeats the TPU kernel's arithmetic step by
-step; the tests hold it against the Pallas kernel and ``chip_smoke.py``
-holds the CUDA kernel against it on the card. There is no fallback from
-the kernel to the plain version.
+On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch the
+hand-written kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+(mma.sync bf16 with f32 accumulation; their designs and bounds are in
+the sources). On CPU tensors they run :func:`flash_fwd_reference` and
+:func:`flash_bwd_reference`, the plain PyTorch versions that repeat the
+TPU kernels' arithmetic step by step; the tests hold them against the
+Pallas kernels and ``chip_smoke.py`` holds the CUDA kernels against them
+on the card. There is no fallback from a kernel to its plain version.
+:class:`FlashAttention` ties the two into one differentiable op, as
+``jax.custom_vjp`` does in the reference.
 
 The public layout is the model's ``[batch, seq, heads, d_head]``; the
-kernel reads it through its strides, so nothing is transposed. The
-backward kernels and the ring block update are not ported yet.
+kernels read it through its strides, so nothing is transposed. The ring
+block update is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,16 +26,20 @@ import ctypes
 import torch
 
 from tasksrunner_torch import _kernels
+from tasksrunner_torch.envflag import env_str
 
 #: d_head values the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_YZ = 65535
 
-#: launches of the CUDA kernel since the count was last set to 0; the
-#: plain version on the CPU does not count
+#: launches of the CUDA kernels since the counts were last set to 0: the
+#: forward, the default backward (Δ precomputed) and the fused-Δ backward;
+#: the plain versions on the CPU do not count
 launches = 0
+bwd_launches = 0
+bwd_fused_launches = 0
 
-_entry = None
+_entries: dict = {}
 
 
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,24 +49,56 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``scale``; m = rowmax S; the unnormalised p = exp(S − m), rounded to
     bf16 for the PV product; O = PV / Σp in the inputs' dtype; LSE =
     m + log Σp in f32, shaped [b, h, s]."""
-    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    qf, kf, vf = (_bf16_f32(x) for x in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     den = p.sum(dim=-1)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", _bf16_f32(p), vf)
     out = ctx / den.transpose(1, 2)[..., None]
     return out.to(q.dtype), m + torch.log(den)
 
 
+def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Δ = Σ_d f32(dO)·f32(O) per row, [b, h, s] f32 (flash.py:229-230)."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                        scale: float, *, delta: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The TPU backward's arithmetic in plain PyTorch, in f32 on the
+    inputs' device, rounding to bf16 where its ``_dot`` rounds: with dO
+    cast to q's dtype, P = exp(bf16(q)·bf16(k)ᵀ·scale − LSE); dV =
+    bf16(P)ᵀ·bf16(dO); dP = bf16(dO)·bf16(v)ᵀ; Δ = Σ f32(dO)∘f32(O)
+    unless ``delta`` [b, h, s] is given; dS = P∘(dP − Δ)·scale; dQ =
+    bf16(dS)·bf16(k) and dK = bf16(dS)ᵀ·bf16(q), in the inputs' dtype."""
+    dout = dout.to(q.dtype)
+    qf, kf, vf, gf = (_bf16_f32(x) for x in (q, k, v, dout))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_f32(p), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    if delta is None:
+        delta = _delta(out, dout)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16_f32(ds), kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16_f32(ds), qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_fwd takes q, k, v of one shape [batch, seq, heads, "
-                         f"d_head]; got {tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError("flash attention takes q, k, v of one shape [batch, seq, "
+                         f"heads, d_head]; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError("flash_fwd takes bf16 or f32 inputs of one dtype; got "
+        raise TypeError("flash attention takes bf16 or f32 inputs of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
@@ -77,7 +117,7 @@ def _check_cuda_layout(*tensors: torch.Tensor) -> None:
         if x.stride(3) != 1 or any(x.stride(i) % 8 for i in range(3)) \
                 or x.data_ptr() % 16:
             raise ValueError(
-                "flash_fwd needs a dense d axis, b/s/h strides that are "
+                "the flash kernels need a dense d axis, b/s/h strides that are "
                 f"multiples of 8 and 16-byte aligned data; got strides "
                 f"{x.stride()} (call .contiguous() first)")
     b, _, h, _ = tensors[0].shape
@@ -85,15 +125,32 @@ def _check_cuda_layout(*tensors: torch.Tensor) -> None:
         raise ValueError(f"batch and heads must be at most {_MAX_GRID_YZ}")
 
 
-def _kernel():
-    global _entry
-    if _entry is None:
-        fn = _kernels.library("flash_fwd").tr_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = {
+    # tr_flash_fwd(q, k, v, o, lse, b, s, h, d, is_bf16, strides, scale, stream)
+    "flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
+    # tr_flash_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv,
+    #              b, s, h, d, is_bf16, fused, strides, scale, stream)
+    "flash_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _kernel(name: str = "flash_fwd"):
+    """The bound C entry ``tr_<name>`` of ``csrc/<name>.cu``, built and
+    loaded at first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_kernels.library(name), f"tr_{name}")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[name] = fn
+    return fn
+
+
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_int64 * (3 * len(tensors)))(
+        *(x.stride(i) for x in tensors for i in range(3)))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,12 +160,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 12)(*(x.stride(i) for x in (q, k, v, out)
-                                      for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), b, s, h, d, int(q.dtype == torch.bfloat16),
-                    strides, float(scale), stream)
+                    _strides(q, k, v, out), float(scale), stream)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     launches += 1
@@ -129,6 +184,81 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, scale)
 
 
+def _bwd_delta_precompute() -> bool:
+    """Δ placement for the backward, as flash.py:214-220 reads it:
+    precomputed in torch (the default, kernel B2) unless
+    ``TASKSRUNNER_FLASH_BWD_DELTA=fused`` (kernel B3, Δ in the kernel)."""
+    return env_str("TASKSRUNNER_FLASH_BWD_DELTA", "precompute") != "fused"
+
+
+def _launch_bwd(q, k, v, out, lse, dout, scale):
+    global bwd_launches, bwd_fused_launches
+    _check_cuda_layout(q, k, v, out, dout)
+    b, s, h, d = q.shape
+    precompute = _bwd_delta_precompute()
+    delta = _delta(out, dout) if precompute else None
+    dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
+                  for _ in range(3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel("flash_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if precompute else out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr() if precompute else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, s, h, d, int(q.dtype == torch.bfloat16), int(not precompute),
+        _strides(q, k, v, out, dout, dq, dk, dv), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    if precompute:
+        bwd_launches += 1
+    else:
+        bwd_fused_launches += 1
+    return dq, dk, dv
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward: dq, dk, dv [b, s, h, d] in the inputs' dtype
+    from q, k, v, the forward's context ``out`` and LSE [b, h, s] f32,
+    and the context's gradient ``dout`` (cast to q's dtype first)."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("flash_bwd takes out and dout of q's shape, out in q's dtype")
+    b, s, h, _ = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_bwd takes a contiguous f32 lse of shape {(b, h, s)}")
+    if any(x.device != q.device for x in (out, lse, dout)):
+        raise ValueError("flash_bwd takes every input on one device")
+    dout = dout.to(q.dtype)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, out, lse, dout, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, not {q.device}")
+    return _launch_bwd(q, k, v, out, lse, dout, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention over the kernels: the forward is
+    :func:`flash_fwd` and keeps q, k, v, the context and LSE; the
+    backward is :func:`flash_bwd`, with gradients in the inputs' dtype
+    (flash.py:263-292's custom VJP). On CPU tensors both run their
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
 def _resolve_scale(q: torch.Tensor, scale: float | None) -> float:
     return float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
 
@@ -137,6 +267,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """Fused attention: q/k/v [batch, seq, heads, d_head] → context
     [batch, seq, heads, d_head] in the inputs' dtype; ``scale``
-    defaults to 1/√d_head."""
-    out, _ = flash_fwd(q, k, v, _resolve_scale(q, scale))
-    return out
+    defaults to 1/√d_head. Differentiable through
+    :class:`FlashAttention`, which keeps nothing where no gradient can
+    be asked for (``inference_mode``, ``no_grad``)."""
+    return FlashAttention.apply(q, k, v, _resolve_scale(q, scale))

@@ -1,5 +1,5 @@
 """Task-priority scorer: the port of ``tasksrunner/ml/model.py``'s
-single-device forward.
+single-device forward, loss and train step.
 
 The arithmetic follows the JAX model step by step, so that the same
 params and tokens give the same logits:
@@ -17,7 +17,9 @@ params and tokens give the same logits:
 
 The attention core is the flash kernel (:mod:`tasksrunner_torch.flash`)
 unless ``TASKSRUNNER_FLASH`` is off, which selects the plain einsum pair
-kept as the reference core.
+kept as the reference core. Both are differentiable: the flash core
+through its backward kernels, the einsum core through plain autograd,
+which makes it the gradient reference on the card.
 
 Params are a plain dict with the JAX tree's keys and its ``[in, out]``
 layouts, so :func:`params_from_jax` loads a JAX tree without transposes.
@@ -130,13 +132,17 @@ def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 × bf16 with f32 accumulation, stored in the activation
-    dtype. On the card this is a bf16 cuBLAS product; on the CPU the f32
-    product of bf16-rounded inputs repeats JAX's rounding."""
-    if a.is_cuda:
-        out = torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16))
-    else:
-        out = _bf16_f32(a) @ _bf16_f32(b)
-    return out.to(act_dtype())
+    dtype (tasksrunner/ml/model.py:96-102). With bf16 activations on the
+    card this is a bf16 cuBLAS product, which accumulates in f32 and
+    rounds once to bf16 as the reference does. Otherwise it is the f32
+    product of bf16-rounded inputs, which keeps the f32 accumulator: a
+    bf16 product stored in f32 would be rounded to bf16 first. Each
+    bf16 value is exact in TF32 too, so the TF32 setting does not change
+    the result beyond summation order."""
+    dtype = act_dtype()
+    if a.is_cuda and dtype == torch.bfloat16:
+        return torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    return (_bf16_f32(a) @ _bf16_f32(b)).to(dtype)
 
 
 def _layernorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -177,6 +183,53 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig) -> torch.Te
         x = x + y
     pooled = x.float().mean(dim=1)
     return _bf16_f32(pooled) @ _bf16_f32(params["head"])
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor, *,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` [batch] under the
+    log-softmax of the f32 logits (tasksrunner/ml/model.py:176-180)."""
+    logp = F.log_softmax(forward(params, tokens, cfg=cfg), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def _leaves(params: dict) -> list[torch.Tensor]:
+    """Every tensor of ``params`` in a fixed order."""
+    return [params["embed"], params["pos"], params["head"],
+            *(layer[key] for layer in params["layers"] for key in _LAYER_KEYS)]
+
+
+def _with_leaves(leaves: list[torch.Tensor]) -> dict[str, Any]:
+    """The params dict of :func:`_leaves`' order."""
+    n = len(_LAYER_KEYS)
+    return {"embed": leaves[0], "pos": leaves[1], "head": leaves[2],
+            "layers": [dict(zip(_LAYER_KEYS, leaves[i:i + n]))
+                       for i in range(3, len(leaves), n)]}
+
+
+def make_train_step(cfg: ModelConfig, *, learning_rate: float = 1e-3):
+    """One SGD step, ``step(params, tokens, labels) -> (params, loss)``
+    (tasksrunner/ml/model.py:211-226, without a mesh). The gradient of
+    every leaf comes from ``torch.autograd.grad`` of :func:`loss_fn`;
+    the f32 masters are then updated in place under ``torch.no_grad()``,
+    which is what ``donate_argnums=(0,)`` lets XLA do with the JAX
+    step's params: the ``params`` returned are the ones passed in, and
+    no second copy is held. The loss comes back as a detached 0-d f32
+    tensor; reading it waits for the step."""
+
+    def step(params: dict, tokens: torch.Tensor,
+             labels: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        leaves = _leaves(params)
+        views = [p.detach().requires_grad_() for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(_with_leaves(views), tokens, labels, cfg=cfg)
+            grads = torch.autograd.grad(loss, views)
+        with torch.no_grad():
+            for p, g in zip(leaves, grads):
+                p.sub_(learning_rate * g)
+        return params, loss.detach()
+
+    return step
 
 
 def hash_token_ids(text: str, cfg: ModelConfig) -> list[int]:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card. These tests need a CUDA card and
-skip without one (the kernel has no CPU mode); they import no JAX, so
+"""The port's CUDA kernels on the card. These tests need a CUDA card and
+skip without one (the kernels have no CPU mode); they import no JAX, so
 they run on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py -q
@@ -8,7 +8,7 @@ they run on a machine that has only PyTorch:
 import pytest
 import torch
 
-from tasksrunner_torch import flash
+from tasksrunner_torch import flash, model
 from tasksrunner_torch.model import ModelConfig, forward, init_params
 
 pytestmark = pytest.mark.gpu
@@ -51,3 +51,63 @@ def test_forward_launches_the_kernel_once_per_layer(card, monkeypatch):
     monkeypatch.setenv("TASKSRUNNER_FLASH", "0")
     want = forward(params, tokens, cfg=cfg)
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 2, 16), (8, 32, 4, 32), (2, 100, 4, 64),
+                                   (1, 130, 2, 128)],
+                         ids=lambda s: "b{}s{}h{}d{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("variant", ["precompute", "fused"])
+def test_backward_kernel_matches_plain_version(card, shape, dtype, variant, monkeypatch):
+    monkeypatch.setenv("TASKSRUNNER_FLASH_BWD_DELTA", variant)
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=card).to(dtype)
+                     for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = flash.flash_fwd(q, k, v, scale)
+    before = (flash.bwd_launches, flash.bwd_fused_launches)
+    got = flash.flash_bwd(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    fused = variant == "fused"
+    assert (flash.bwd_launches, flash.bwd_fused_launches) == (
+        before[0] + (not fused), before[1] + fused)
+    want = flash.flash_bwd_reference(q, k, v, out, lse, dout, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        # the same rounding points; f32 sums in another order can move one P
+        # or dS term across a bf16 boundary, and a bf16 output by one step
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_train_step_launches_each_kernel_once_per_layer(card, monkeypatch):
+    monkeypatch.setenv("TASKSRUNNER_FLASH", "1")
+    monkeypatch.delenv("TASKSRUNNER_FLASH_BWD_DELTA", raising=False)
+    cfg = ModelConfig()
+    params = init_params(cfg, 0, card)
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=card)
+    labels = torch.randint(0, cfg.n_classes, (8,), device=card)
+    step = model.make_train_step(cfg, learning_rate=0.01)
+    for _ in range(2):
+        before = (flash.launches, flash.bwd_launches, flash.bwd_fused_launches)
+        params, loss = step(params, tokens, labels)
+        assert torch.isfinite(loss)
+        assert (flash.launches - before[0], flash.bwd_launches - before[1],
+                flash.bwd_fused_launches - before[2]) == (cfg.n_layers, cfg.n_layers, 0)
+
+
+def test_f32_activation_matmul_keeps_the_f32_accumulator(card, monkeypatch):
+    """With TASKSRUNNER_ACT_F32 the product of bf16-rounded inputs is kept
+    in f32, as tasksrunner/ml/model.py:100-102 keeps it. A bf16 product
+    cast to f32 afterwards is off by a bf16 rounding (about 2^-9
+    relative); the repaired product agrees with the CPU to 1e-5."""
+    monkeypatch.setenv("TASKSRUNNER_ACT_F32", "1")
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    a = torch.randn(8, 32, 128, generator=gen)
+    b = torch.randn(128, 512, generator=gen) / 128 ** 0.5
+    want = model._matmul(a, b)
+    got = model._matmul(a.to(card), b.to(card)).cpu()
+    assert got.dtype == want.dtype == torch.float32
+    scale = want.abs().max()
+    assert (got - want).abs().max() / scale <= 1e-5
+    stored_bf16 = torch.matmul(a.to(card, torch.bfloat16), b.to(card, torch.bfloat16))
+    assert (stored_bf16.float().cpu() - want).abs().max() / scale > 1e-4
