@@ -9,29 +9,40 @@ exit, traceback) at the first phase that does not hold:
 2. build: every kernel of the paths compiled with nvcc from ``csrc/``,
    one nvcc per source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
-   version on the card, at the shapes the serving and training paths
-   and the bench config give it, in bf16 and f32: the forward, and the
-   backward with Δ precomputed and fused;
+   version on the card, at the shapes the serving, training and
+   sequence-parallel paths and the bench config give it, in bf16 and
+   f32: the forward, the backward with Δ precomputed and fused, and the
+   ring block update from the ring's first step and from a later one;
 4. matmul: the f32-activation product on the card against the CPU's;
 5. gradient: ``FlashAttention``'s gradients against autograd through
    the einsum core;
-6. forward: the model with the flash kernel against the same params with
+6. ring: ``ring_attention`` at sp 2 and 4 against the dense flash
+   forward, and its gradients against autograd through the einsum core,
+   at the bench config's attention shape;
+7. forward: the model with the flash kernel against the same params with
    ``TASKSRUNNER_FLASH=0``, at the served and the bench config, with one
    kernel launch per layer;
-7. serve: the scorer's HTTP server on 127.0.0.1 answering concurrent
+8. serve: the scorer's HTTP server on 127.0.0.1 answering concurrent
    ``POST /score`` requests, with the launch counts set to 0 just before
    and read just after;
-8. train: SGD steps at the served config (loss falls; one forward and
+9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
    backward), then steps at the bench config, with the launch counts
    set to 0 just before and read just after;
-9. times: kernel, plain version, the PyTorch library call
-   (``scaled_dot_product_attention`` and its backward, timed here only
-   as a yardstick) and the bound, from CUDA events; the forward's time
-   per bucket and the train step's at both configs;
-10. profile: the forward's and the train step's device busy share and
-    largest kernels, from ``torch.profiler``.
+10. sequence parallel: the model with ``Mesh(sp=4)`` at the bench config
+    (forward and one train step) and ``Mesh(sp=2)`` at the served config
+    (one train step) against the single-device flash path from the same
+    params, with the launch counts set to 0 just before and read just
+    after: ``n_layers × sp`` ring launches per forward, no dense one;
+11. times: kernel, plain version, the PyTorch library call
+    (``scaled_dot_product_attention`` and its backward, timed here only
+    as a yardstick; none computes the ring's state update) and the bound,
+    from CUDA events; the forward's time per bucket and the train step's
+    at both configs; ring attention against dense attention, and the
+    sequence-parallel forward and train step;
+12. profile: the forward's and the train step's device busy share and
+    largest kernels, from ``torch.profiler``, single-device and at sp 4.
 
 Earlier lines are JSON records; the line before the last holds every
 kernel's numbers; the last line is
@@ -56,7 +67,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from tasksrunner_torch import _kernels, flash, model, service, train  # noqa: E402
+from tasksrunner_torch import _kernels, flash, model, ring, service, train  # noqa: E402
+from tasksrunner_torch.mesh import Mesh  # noqa: E402
 from tasksrunner_torch.model import ModelConfig, forward, init_params  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
@@ -69,6 +81,7 @@ BENCH = ModelConfig(vocab=32768, seq_len=512, d_model=1024, n_heads=16,
                     d_ff=4096, n_layers=8)
 BENCH_BATCH = 32
 SERVED_BATCH = 8
+BENCH_SP, SERVED_SP = 4, 2
 
 # the plain version rounds p to bf16 against the final row max, the kernel
 # against the running max of the key tiles seen so far: the two differ by
@@ -92,6 +105,24 @@ LOSS_TOL, LEAF_TOL = 1e-2, 2e-2
 # diverges on this model (and the port with it), at 0.01 both fall
 SERVED_LR = 0.01
 BWD_VARIANTS = {"flash_bwd_delta": "precompute", "flash_bwd_fused": "fused"}
+
+# the ring block update against its plain version: both round P to bf16
+# against the same final max, so m' and den' differ only by f32 sums in
+# another order (about d·2^-24 absolute for an m' near 0), and num' by at
+# most one P term moved across a bf16 rounding boundary by an ulp of exp
+RING_M_ATOL, RING_M_RTOL = 1e-6, 1e-5
+RING_DEN_RTOL = 1e-4
+RING_NUM_ATOL, RING_NUM_RTOL = 1e-2, 1e-2
+
+RING_CASES = [  # (B, sq, sk, h, d), B the batch times sp, folded
+    (2, 16, 24, 2, 32),   # tests/test_ml_extension.py's block update
+    (SERVED_BATCH * 2, 16, 16, 4, 32),  # served config, sp 2 and sp 4
+    (SERVED_BATCH * 4, 8, 8, 4, 32),
+    (16, 4, 4, 4, 16),    # the dryrun config, batch 4, sp 4
+    (BENCH_BATCH * BENCH_SP, 128, 128, 16, 64),  # bench config, sp 4
+    (2, 100, 130, 4, 64),  # ragged tiles, sq != sk
+    (1, 130, 100, 2, 128),
+]
 
 KERNEL_CASES = [  # (b, s, h, d)
     (1, 8, 2, 16),        # TINY
@@ -156,6 +187,16 @@ def attention_bwd_bound(b: int, s: int, h: int, d: int, itemsize: int,
     return _bound(moved, 10 * b * h * s * s * d)
 
 
+def ring_bound(b: int, sq: int, sk: int, h: int, d: int,
+               itemsize: int) -> tuple[float, str]:
+    """Least time for one ring block update on an H100: q, k, v read
+    once, num read and written once in f32, m and den read and written
+    once, against the two products' 4·b·h·sq·sk·d operations."""
+    moved = (b * sq * h * d + 2 * b * sk * h * d) * itemsize \
+        + 2 * b * h * sq * d * 4 + 4 * b * h * sq * 4
+    return _bound(moved, 4 * b * h * sq * sk * d)
+
+
 def qkv(gen, b, s, h, d, dtype, n=3):
     return [torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
             for _ in range(n)]
@@ -173,11 +214,13 @@ def bwd_variant(variant: str):
 
 def reset_counts() -> None:
     flash.launches = flash.bwd_launches = flash.bwd_fused_launches = 0
+    flash.ring_launches = 0
 
 
 def counts() -> dict:
     return {"flash_fwd": flash.launches, "flash_bwd_delta": flash.bwd_launches,
-            "flash_bwd_fused": flash.bwd_fused_launches}
+            "flash_bwd_fused": flash.bwd_fused_launches,
+            "flash_ring": flash.ring_launches}
 
 
 # -- phases -----------------------------------------------------------------
@@ -195,7 +238,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     started = time.monotonic()
-    names = ["flash_fwd", "flash_bwd"]
+    names = ["flash_fwd", "flash_bwd", "flash_ring"]
     _kernels.build(names)
     for name in names:
         flash._kernel(name)  # load and bind
@@ -250,6 +293,61 @@ def phase_kernel_vs_plain() -> dict:
     return worst
 
 
+def ring_state(gen, b, sq, h, d, start: bool):
+    """The ring's state at its first step (-inf, 0, 0), or after one plain
+    step over another random block (finite, of the sizes the ring
+    carries)."""
+    m = torch.full((b, h, sq), float("-inf"), device="cuda")
+    num = torch.zeros(b, h, sq, d, device="cuda")
+    den = torch.zeros(b, h, sq, device="cuda")
+    if start:
+        return m, num, den
+    q, k, v = qkv(gen, b, sq, h, d, torch.float32)
+    return flash.ring_block_update_reference(q, k, v, m, num, den, scale=d ** -0.5)
+
+
+def phase_ring_kernel_vs_plain() -> float:
+    """The ring block update against its plain version: the worst
+    |num' - plain| over every case."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for b, sq, sk, h, d in RING_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for start in (True, False):
+                (q,) = qkv(gen, b, sq, h, d, dtype, n=1)
+                k, v = qkv(gen, b, sk, h, d, dtype, n=2)
+                state = ring_state(gen, b, sq, h, d, start)
+                kept = [x.clone() for x in state]
+                got = flash.ring_block_update(q, k, v, *state, scale=d ** -0.5)
+                torch.cuda.synchronize()
+                want = flash.ring_block_update_reference(q, k, v, *state, scale=d ** -0.5)
+                errs = [(g - w).abs() for g, w in zip(got, want)]
+                ok = (all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+                          for g in got)
+                      and all(torch.equal(x, y) for x, y in zip(state, kept))
+                      and bool((errs[0] <= RING_M_ATOL + RING_M_RTOL * want[0].abs()).all())
+                      and bool((errs[1] <= RING_NUM_ATOL
+                                + RING_NUM_RTOL * want[1].abs()).all())
+                      and bool((errs[2] <= RING_DEN_RTOL * want[2].abs()).all()))
+                emit({"phase": "kernel_vs_plain", "kernel": "flash_ring",
+                      "shape": [b, sq, sk, h, d], "dtype": str(dtype).split(".")[-1],
+                      "state": "first step" if start else "later step",
+                      "max_abs_err_m_num_den": [e.max().item() for e in errs],
+                      "max_rel_err_m_den": [(errs[i] / want[i].abs()).max().item()
+                                            for i in (0, 2)], "ok": ok})
+                check(ok, f"flash_ring disagrees with its plain version at "
+                          f"{(b, sq, sk, h, d)} {dtype} start={start}")
+                worst = max(worst, errs[1].max().item())
+    try:
+        q, k, v = qkv(gen, 1, 8, 2, 48, torch.bfloat16)
+        flash.ring_block_update(q, k, v, *ring_state(gen, 1, 8, 2, 48, True), scale=0.1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_ring accepted d_head 48")
+    return worst
+
+
 def phase_matmul() -> dict:
     """The f32-activation product on the card against the same product
     on the CPU: the repaired path keeps the f32 accumulator; a bf16
@@ -293,11 +391,42 @@ def phase_gradient() -> None:
             check(ok, f"{name}: flash gradients disagree with the einsum core's")
 
 
-def _logits(params, tokens, cfg, flash_on: bool) -> torch.Tensor:
+def phase_ring() -> None:
+    """ring_attention at sp 2 and 4 against the dense flash forward, and
+    its gradients (sin-sum loss, f32 leaves) against autograd through the
+    einsum core, at the bench config's attention shape."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, s, h, d = BENCH_BATCH, BENCH.seq_len, BENCH.n_heads, BENCH.d_head
+    q, k, v = qkv(gen, b, s, h, d, torch.bfloat16)
+    with torch.inference_mode():
+        dense = flash.flash_attention(q, k, v).float()
+    leaves = [x.requires_grad_() for x in qkv(gen, b, s, h, d, torch.float32)]
+    want_grads = torch.autograd.grad(model._einsum_attention(*leaves).sin().sum(), leaves)
+    for sp in (2, BENCH_SP):
+        before = flash.ring_launches
+        with torch.inference_mode():
+            got = ring.ring_attention(q, k, v, mesh=Mesh(sp=sp))
+        torch.cuda.synchronize()
+        launched = flash.ring_launches - before
+        err = (got - dense).abs().max().item()
+        grads = torch.autograd.grad(
+            ring.ring_attention(*leaves, mesh=Mesh(sp=sp)).sin().sum(), leaves)
+        grad_errs = [(g - w).abs().max().item() for g, w in zip(grads, want_grads)]
+        ok = (got.dtype == torch.float32 and got.shape == (b, s, h, d) and err <= LOGITS_TOL
+              and launched == sp
+              and all(bool(((g - w).abs() <= SIN_GRAD_TOL + SIN_GRAD_TOL * w.abs()).all())
+                      for g, w in zip(grads, want_grads)))
+        emit({"phase": "ring", "sp": sp, "shape": [b, s, h, d],
+              "max_abs_err_vs_dense_flash": err, "max_abs_err_dq_dk_dv": grad_errs,
+              "ring_launches": launched, "ok": ok})
+        check(ok, f"ring attention at sp {sp} disagrees with dense attention")
+
+
+def _logits(params, tokens, cfg, flash_on: bool, mesh: Mesh | None = None) -> torch.Tensor:
     os.environ["TASKSRUNNER_FLASH"] = "1" if flash_on else "0"
     try:
         with torch.inference_mode():
-            out = forward(params, tokens, cfg=cfg)
+            out = forward(params, tokens, cfg=cfg, mesh=mesh)
         torch.cuda.synchronize()
         return out
     finally:
@@ -406,8 +535,9 @@ def phase_serve() -> int:
     reset_counts()
     result = asyncio.run(_serve(n_requests=32))
     launches = flash.launches
-    check(counts()["flash_bwd_delta"] == counts()["flash_bwd_fused"] == 0,
-          "the served path launched a backward kernel")
+    check(counts()["flash_bwd_delta"] == counts()["flash_bwd_fused"]
+          == counts()["flash_ring"] == 0,
+          "the served path launched a backward or ring kernel")
     batches = sum(result["stats"]["batches"].values())
     warmups = len(result["stats"]["buckets"])
     expected = SERVED.n_layers * (warmups + batches)
@@ -418,12 +548,13 @@ def phase_serve() -> int:
     return launches
 
 
-def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool):
+def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
+              mesh: Mesh | None = None):
     """One train step from a copy of ``params``: (new params, loss)."""
     os.environ["TASKSRUNNER_FLASH"] = "1" if flash_on else "0"
     try:
         copy = model._with_leaves([p.clone() for p in model._leaves(params)])
-        new, loss = model.make_train_step(cfg, learning_rate=lr)(copy, tokens, labels)
+        new, loss = model.make_train_step(cfg, mesh, learning_rate=lr)(copy, tokens, labels)
         torch.cuda.synchronize()
         return new, loss
     finally:
@@ -468,7 +599,7 @@ def phase_train() -> dict:
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
           and launched == {"flash_fwd": steps * SERVED.n_layers,
                            "flash_bwd_delta": steps * SERVED.n_layers,
-                           "flash_bwd_fused": 0})
+                           "flash_bwd_fused": 0, "flash_ring": 0})
     emit({"phase": "train", "config": "served", "steps": steps, "batch": SERVED_BATCH,
           "learning_rate": SERVED_LR, "losses": losses, "launches": launched,
           "n_layers": SERVED.n_layers, "ok": ok})
@@ -487,9 +618,75 @@ def phase_train() -> dict:
     check(ok, f"bench training: losses {losses}, launches {launched}")
     _compare_steps("bench", BENCH, BENCH_BATCH)
     final = counts()
-    for name, n in final.items():
-        check(n > 0, f"the training path launched {name} no time")
+    for name in ("flash_fwd", *BWD_VARIANTS):
+        check(final[name] > 0, f"the training path launched {name} no time")
+    check(final["flash_ring"] == 0, "the single-device training path launched flash_ring")
     return final
+
+
+def _step_errors(got, want, params) -> dict:
+    errs = [(g - w).abs().max().item()
+            for g, w in zip(model._leaves(got), model._leaves(want))]
+    moved = min((g - p).abs().max().item()
+                for g, p in zip(model._leaves(got), model._leaves(params)))
+    return {"max_abs_err_leaves": max(errs), "min_leaf_move": moved,
+            "finite": all(bool(torch.isfinite(g).all()) for g in model._leaves(got))}
+
+
+def phase_sequence_parallel() -> int:
+    """The slice's main path, the model with a Mesh: the bench config's
+    forward at sp 4, one train step at sp 4 and one at the served config
+    at sp 2, each against the single-device flash path from the same
+    params. The references run first; the launch counts are set to 0
+    just before the sequence-parallel runs and read just after."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = []
+    for name, cfg, batch, sp in (("bench", BENCH, BENCH_BATCH, BENCH_SP),
+                                 ("served", SERVED, SERVED_BATCH, SERVED_SP)):
+        params = init_params(cfg, 1, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+        want_logits = _logits(params, tokens, cfg, flash_on=True) if name == "bench" else None
+        want, want_loss = _one_step(cfg, params, tokens, labels, 0.1, flash_on=True)
+        cases.append((name, cfg, batch, sp, params, tokens, labels, want_logits, want,
+                      want_loss))
+
+    reset_counts()
+    expected = dict.fromkeys(counts(), 0)
+    for name, cfg, batch, sp, params, tokens, labels, want_logits, want, want_loss in cases:
+        if want_logits is not None:
+            before = counts()
+            got = _logits(params, tokens, cfg, flash_on=True, mesh=Mesh(sp=sp))
+            launched = {k: n - before[k] for k, n in counts().items()}
+            err = (got - want_logits).abs().max().item()
+            ok = (got.shape == (batch, cfg.n_classes) and bool(torch.isfinite(got).all())
+                  and bool(((got - want_logits).abs()
+                            <= LOGITS_TOL + LOGITS_TOL * want_logits.abs()).all())
+                  and launched == {**dict.fromkeys(launched, 0),
+                                   "flash_ring": cfg.n_layers * sp})
+            emit({"phase": "sequence_parallel", "config": name, "batch": batch, "sp": sp,
+                  "run": "forward", "max_abs_err_logits_vs_single_device": err,
+                  "launches": launched, "n_layers": cfg.n_layers, "ok": ok})
+            check(ok, f"{name} sp {sp} forward: logits or launches {launched} wrong")
+            expected["flash_ring"] += cfg.n_layers * sp
+        got, got_loss = _one_step(cfg, params, tokens, labels, 0.1, flash_on=True,
+                                  mesh=Mesh(sp=sp))
+        errs = _step_errors(got, want, params)
+        ok = (abs(got_loss.item() - want_loss.item()) <= LOSS_TOL
+              and errs["max_abs_err_leaves"] <= LEAF_TOL and errs["finite"]
+              and errs["min_leaf_move"] > 0)
+        emit({"phase": "sequence_parallel", "config": name, "batch": batch, "sp": sp,
+              "run": "train step", "learning_rate": 0.1, "loss_sp": got_loss.item(),
+              "loss_single_device": want_loss.item(), **errs, "ok": ok})
+        check(ok, f"{name} sp {sp} train step disagrees with the single-device step")
+        expected["flash_ring"] += cfg.n_layers * sp
+        del got
+    launched = counts()
+    emit({"phase": "sequence_parallel", "launches": launched, "expected": expected})
+    check(launched == expected, f"sequence-parallel launches {launched} != {expected}")
+    check(launched["flash_ring"] > 0, "the sequence-parallel path launched flash_ring no time")
+    return launched["flash_ring"]
 
 
 def _time_attention(b, s, h, d) -> dict:
@@ -537,6 +734,56 @@ def _time_attention_bwd(b, s, h, d) -> dict:
     return timed
 
 
+def _time_ring_block(b, sq, sk, h, d) -> dict:
+    """The ring block update on a later-step state (its work does not
+    depend on the values): kernel, plain version and bound. No single
+    PyTorch call computes this state update, so there is no library
+    time."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    (q,) = qkv(gen, b, sq, h, d, torch.bfloat16, n=1)
+    k, v = qkv(gen, b, sk, h, d, torch.bfloat16, n=2)
+    state = ring_state(gen, b, sq, h, d, start=False)
+    scale = d ** -0.5
+    kernel_ms = cuda_ms(lambda: flash.ring_block_update(q, k, v, *state, scale=scale))
+    plain_ms = cuda_ms(lambda: flash.ring_block_update_reference(q, k, v, *state, scale=scale),
+                       reps=5)
+    bound_ms, bound_by = ring_bound(b, sq, sk, h, d, q.element_size())
+    return {"shape": [b, sq, sk, h, d], "dtype": "bfloat16", "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _time_sequence_parallel() -> None:
+    """Ring attention at sp 4 against the dense flash forward on the same
+    global bench-shape inputs; the forward and train step of the bench
+    config at sp 4 and of the served config at sp 2."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, s, h, d = BENCH_BATCH, BENCH.seq_len, BENCH.n_heads, BENCH.d_head
+    q, k, v = qkv(gen, b, s, h, d, torch.bfloat16)
+    with torch.inference_mode():
+        ring_ms = cuda_ms(lambda: ring.ring_attention(q, k, v, mesh=Mesh(sp=BENCH_SP)))
+        dense_ms = cuda_ms(lambda: flash.flash_attention(q, k, v))
+    emit({"phase": "times", "attention": "ring vs dense", "shape": [b, s, h, d],
+          "sp": BENCH_SP, "ring_ms": ring_ms, "dense_flash_ms": dense_ms,
+          "ring_bound_ms": BENCH_SP * ring_bound(b * BENCH_SP, s // BENCH_SP, s // BENCH_SP,
+                                                 h, d, 2)[0],
+          "dense_bound_ms": attention_bound(b, s, h, d, 2)[0]})
+    for name, cfg, batch, sp in (("bench", BENCH, BENCH_BATCH, BENCH_SP),
+                                 ("served", SERVED, SERVED_BATCH, SERVED_SP)):
+        params = init_params(cfg, 0, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+        mesh = Mesh(sp=sp)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: forward(params, tokens, cfg=cfg, mesh=mesh), reps=7, inner=5)
+        emit({"phase": "times", "forward": name, "sp": sp, "batch": batch, "ms": ms})
+        step = model.make_train_step(cfg, mesh)
+        ms = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
+        emit({"phase": "times", "train_step": name, "sp": sp, "batch": batch, "ms": ms})
+        del params
+
+
 def phase_times() -> dict:
     timed = {}
     shapes = [(1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32), (BENCH_BATCH, 512, 16, 64)]
@@ -567,8 +814,13 @@ def phase_times() -> dict:
         ms = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
         emit({"phase": "times", "train_step": name, "batch": batch, "ms": ms})
         del params
+    for shape in ((SERVED_BATCH * SERVED_SP, 16, 16, 4, 32), RING_CASES[4]):
+        timed[shape] = _time_ring_block(*shape)
+        emit({"phase": "times", "kernel": "flash_ring", **timed[shape]})
+    _time_sequence_parallel()
     return {"flash_fwd": timed[(32, 32, 4, 32)]["flash_fwd"],
-            **{name: timed[(BENCH_BATCH, 512, 16, 64)][name] for name in BWD_VARIANTS}}
+            **{name: timed[(BENCH_BATCH, 512, 16, 64)][name] for name in BWD_VARIANTS},
+            "flash_ring": timed[RING_CASES[4]]}
 
 
 def _profile(fn, n: int) -> dict:
@@ -603,20 +855,23 @@ def _profile(fn, n: int) -> dict:
 
 def phase_profile() -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, cfg, batch, n in (("served", SERVED, 32, 20),
-                                ("bench", BENCH, BENCH_BATCH, 5)):
+    for name, cfg, batch, n, sp in (("served", SERVED, 32, 20, None),
+                                    ("bench", BENCH, BENCH_BATCH, 5, None),
+                                    ("bench", BENCH, BENCH_BATCH, 5, BENCH_SP)):
         params = init_params(cfg, 0, "cuda")
         tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
                                device="cuda", dtype=torch.int32)
         labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
+        mesh = Mesh(sp=sp) if sp else None
 
         def fwd():
             with torch.inference_mode():
-                forward(params, tokens, cfg=cfg)
+                forward(params, tokens, cfg=cfg, mesh=mesh)
 
-        emit({"phase": "profile", "forward": name, "batch": batch, **_profile(fwd, n)})
-        step = model.make_train_step(cfg)
-        emit({"phase": "profile", "train_step": name, "batch": batch,
+        emit({"phase": "profile", "forward": name, "sp": sp, "batch": batch,
+              **_profile(fwd, n)})
+        step = model.make_train_step(cfg, mesh)
+        emit({"phase": "profile", "train_step": name, "sp": sp, "batch": batch,
               **_profile(lambda: step(params, tokens, labels), n)})
         del params
 
@@ -630,12 +885,15 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     worst_err = phase_kernel_vs_plain()
+    worst_err["flash_ring"] = phase_ring_kernel_vs_plain()
     phase_matmul()
     phase_gradient()
+    phase_ring()
     phase_forward()
     launches = {"flash_fwd": phase_serve()}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
+    launches["flash_ring"] = phase_sequence_parallel()
     timed = phase_times()
     phase_profile()
     sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",
@@ -643,7 +901,9 @@ def main() -> int:
                "flash_bwd_delta": ("tasksrunner_torch/csrc/flash_bwd.cu",
                                    "tasksrunner/ml/flash.py:189"),
                "flash_bwd_fused": ("tasksrunner_torch/csrc/flash_bwd.cu",
-                                   "tasksrunner/ml/flash.py:168")}
+                                   "tasksrunner/ml/flash.py:168"),
+               "flash_ring": ("tasksrunner_torch/csrc/flash_ring.cu",
+                              "tasksrunner/ml/flash.py:297")}
     print(smi, flush=True)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

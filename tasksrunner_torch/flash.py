@@ -1,22 +1,25 @@
 """Flash attention: the port of ``tasksrunner/ml/flash.py``'s forward
-kernel (``_fwd_kernel``, launched by ``_flash_fwd``) and its two backward
+kernel (``_fwd_kernel``, launched by ``_flash_fwd``), its two backward
 kernels (``_bwd_kernel_delta`` and ``_bwd_kernel``, launched by
-``_flash_bwd_call``).
+``_flash_bwd_call``) and the ring block update (``_ring_block_kernel``,
+launched by ``ring_block_update``).
 
-On CUDA tensors :func:`flash_fwd` and :func:`flash_bwd` launch the
-hand-written kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd` and
+:func:`ring_block_update` launch the hand-written kernels in
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_ring.cu``
 (mma.sync bf16 with f32 accumulation; their designs and bounds are in
-the sources). On CPU tensors they run :func:`flash_fwd_reference` and
-:func:`flash_bwd_reference`, the plain PyTorch versions that repeat the
-TPU kernels' arithmetic step by step; the tests hold them against the
-Pallas kernels and ``chip_smoke.py`` holds the CUDA kernels against them
-on the card. There is no fallback from a kernel to its plain version.
-:class:`FlashAttention` ties the two into one differentiable op, as
-``jax.custom_vjp`` does in the reference.
+the sources). On CPU tensors they run :func:`flash_fwd_reference`,
+:func:`flash_bwd_reference` and :func:`ring_block_update_reference`, the
+plain PyTorch versions that repeat the TPU kernels' arithmetic step by
+step; the tests hold them against the Pallas kernels and
+``chip_smoke.py`` holds the CUDA kernels against them on the card. There
+is no fallback from a kernel to its plain version. :class:`FlashAttention`
+ties the first two into one differentiable op, as ``jax.custom_vjp``
+does in the reference; ``ring.RingBlockUpdate`` does the same for the
+block update.
 
 The public layout is the model's ``[batch, seq, heads, d_head]``; the
-kernels read it through its strides, so nothing is transposed. The ring
-block update is not ported yet.
+kernels read it through its strides, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -26,20 +29,28 @@ import ctypes
 import torch
 
 from tasksrunner_torch import _kernels
-from tasksrunner_torch.envflag import env_str
+from tasksrunner_torch.envflag import env_flag, env_str
 
 #: d_head values the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_YZ = 65535
 
 #: launches of the CUDA kernels since the counts were last set to 0: the
-#: forward, the default backward (Δ precomputed) and the fused-Δ backward;
-#: the plain versions on the CPU do not count
+#: forward, the default backward (Δ precomputed), the fused-Δ backward and
+#: the ring block update; the plain versions on the CPU do not count
 launches = 0
 bwd_launches = 0
 bwd_fused_launches = 0
+ring_launches = 0
 
 _entries: dict = {}
+
+
+def use_flash() -> bool:
+    """Attention core toggle: the kernels (default) or the plain einsum
+    cores (``TASKSRUNNER_FLASH=0``), for the dense core and the ring's
+    block update alike."""
+    return env_flag("TASKSRUNNER_FLASH")
 
 
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,6 +143,10 @@ _ARGTYPES = {
     # tr_flash_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv,
     #              b, s, h, d, is_bf16, fused, strides, scale, stream)
     "flash_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
+    # tr_flash_ring(q, k, v, m, num, den, m_out, num_out, den_out,
+    #               b, sq, sk, h, d, is_bf16, strides, scale, stream)
+    "flash_ring": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -257,6 +272,89 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale)
         return dq, dk, dv, None
+
+
+def ring_block_update_reference(q: torch.Tensor, k_blk: torch.Tensor,
+                                v_blk: torch.Tensor, m: torch.Tensor,
+                                num: torch.Tensor, den: torch.Tensor, *,
+                                scale: float
+                                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One visiting K/V block folded into the running softmax state, as
+    ``tasksrunner/ml/ring.py::_block_update`` does it, in f32 on the
+    inputs' device: S = bf16(q)·bf16(k)ᵀ accumulated in f32 times
+    ``scale``; m′ = max(m, rowmax S); c = exp(m − m′); P = exp(S − m′)
+    in f32; num′ = num·c + bf16(P)·bf16(v); den′ = den·c + ΣP. q is
+    [b, sq, h, d], k and v [b, sk, h, d]; m and den [b, h, sq] and num
+    [b, h, sq, d], all f32. Differentiable by plain autograd: the ring's
+    backward runs through it."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", _bf16_f32(q), _bf16_f32(k_blk)) * scale
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    correction = torch.exp(m - m_new)
+    probs = torch.exp(logits - m_new[..., None])
+    num = num * correction[..., None] + torch.einsum(
+        "bhqk,bkhd->bhqd", _bf16_f32(probs), _bf16_f32(v_blk))
+    den = den * correction + probs.sum(dim=-1)
+    return m_new, num, den
+
+
+def _check_ring(q, k_blk, v_blk, m, num, den) -> None:
+    if q.dim() != 4 or k_blk.dim() != 4 or v_blk.shape != k_blk.shape \
+            or k_blk.shape[0] != q.shape[0] or k_blk.shape[2:] != q.shape[2:]:
+        raise ValueError("the ring block update takes q [b, sq, h, d] and k, v "
+                         f"[b, sk, h, d]; got {tuple(q.shape)}, {tuple(k_blk.shape)}, "
+                         f"{tuple(v_blk.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k_blk.dtype != q.dtype \
+            or v_blk.dtype != q.dtype:
+        raise TypeError("the ring block update takes bf16 or f32 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k_blk.dtype}, {v_blk.dtype}")
+    b, sq, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"d_head {d} is not one of {HEAD_DIMS}")
+    if min(b, sq, h, k_blk.shape[1]) < 1:
+        raise ValueError(f"empty ring block {tuple(q.shape)}, {tuple(k_blk.shape)}")
+    for name, x, shape in (("m", m, (b, h, sq)), ("num", num, (b, h, sq, d)),
+                           ("den", den, (b, h, sq))):
+        if x.shape != shape or x.dtype != torch.float32:
+            raise ValueError(f"the ring block update takes an f32 {name} of shape "
+                             f"{shape}; got {tuple(x.shape)} {x.dtype}")
+    if any(x.device != q.device for x in (k_blk, v_blk, m, num, den)):
+        raise ValueError("the ring block update takes every input on one device")
+
+
+def _launch_ring(q, k_blk, v_blk, m, num, den, scale):
+    global ring_launches
+    _check_cuda_layout(q, k_blk, v_blk)
+    if any(not x.is_contiguous() or x.data_ptr() % 16 for x in (m, num, den)):
+        raise ValueError("the ring kernel reads m, num and den contiguous and 16-byte "
+                         "aligned (call .contiguous() first)")
+    b, sq, h, d = q.shape
+    m_out, den_out = torch.empty_like(m), torch.empty_like(den)
+    num_out = torch.empty_like(num)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel("flash_ring")(
+        q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(), num.data_ptr(),
+        den.data_ptr(), m_out.data_ptr(), num_out.data_ptr(), den_out.data_ptr(),
+        b, sq, k_blk.shape[1], h, d, int(q.dtype == torch.bfloat16),
+        _strides(q, k_blk, v_blk), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_ring kernel launch failed: CUDA error {err}")
+    ring_launches += 1
+    return m_out, num_out, den_out
+
+
+def ring_block_update(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+                      m: torch.Tensor, num: torch.Tensor, den: torch.Tensor, *,
+                      scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ring step's state update (see
+    :func:`ring_block_update_reference`) as one kernel: (m′, num′, den′)
+    in new f32 buffers; the inputs are left as they are, since the ring's
+    backward reads them. Forward only."""
+    _check_ring(q, k_blk, v_blk, m, num, den)
+    if q.device.type == "cpu":
+        return ring_block_update_reference(q, k_blk, v_blk, m, num, den, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_block_update runs on cuda or cpu tensors, not {q.device}")
+    return _launch_ring(q, k_blk, v_blk, m, num, den, scale)
 
 
 def _resolve_scale(q: torch.Tensor, scale: float | None) -> float:

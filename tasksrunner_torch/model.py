@@ -1,5 +1,6 @@
 """Task-priority scorer: the port of ``tasksrunner/ml/model.py``'s
-single-device forward, loss and train step.
+forward, loss and train step, on one device or with sequence-parallel
+attention over a :class:`~tasksrunner_torch.mesh.Mesh`.
 
 The arithmetic follows the JAX model step by step, so that the same
 params and tokens give the same logits:
@@ -19,7 +20,11 @@ The attention core is the flash kernel (:mod:`tasksrunner_torch.flash`)
 unless ``TASKSRUNNER_FLASH`` is off, which selects the plain einsum pair
 kept as the reference core. Both are differentiable: the flash core
 through its backward kernels, the einsum core through plain autograd,
-which makes it the gradient reference on the card.
+which makes it the gradient reference on the card. Given a mesh whose
+``sp`` axis is larger than 1, the core is ring attention
+(:mod:`tasksrunner_torch.ring`) instead, as in model.py:137-139; with a
+one-process mesh everything outside the core stays global, as under
+GSPMD.
 
 Params are a plain dict with the JAX tree's keys and its ``[in, out]``
 layouts, so :func:`params_from_jax` loads a JAX tree without transposes.
@@ -37,7 +42,9 @@ import torch.nn.functional as F
 
 from tasksrunner_torch.device import resolve_device
 from tasksrunner_torch.envflag import env_flag
-from tasksrunner_torch.flash import flash_attention
+from tasksrunner_torch.flash import flash_attention, use_flash
+from tasksrunner_torch.mesh import Mesh
+from tasksrunner_torch.ring import ring_attention
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1", "ln2")
 
@@ -117,12 +124,6 @@ def act_dtype() -> torch.dtype:
             else torch.bfloat16)
 
 
-def use_flash() -> bool:
-    """Attention core toggle: the flash kernel (default) or the einsum
-    pair (``TASKSRUNNER_FLASH=0``)."""
-    return env_flag("TASKSRUNNER_FLASH")
-
-
 def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
     """Rounded to bf16, held in f32: a product of two such tensors in
     f32 is exact per term and accumulates in f32, as the reference's
@@ -161,7 +162,26 @@ def _einsum_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", _bf16_f32(probs), _bf16_f32(v))
 
 
-def _attention(x: torch.Tensor, layer: dict, cfg: ModelConfig) -> torch.Tensor:
+def _use_ring(mesh: Mesh | None) -> bool:
+    return (mesh is not None and "sp" in mesh.axis_names
+            and mesh.shape["sp"] > 1)
+
+
+def _check_mesh(mesh: Mesh | None, cfg: ModelConfig) -> None:
+    """The model takes a one-process mesh whose sp divides the sequence;
+    a mesh over a process group needs token, pool and gradient sharding,
+    which the port does not have yet."""
+    if mesh is None:
+        return
+    if mesh.group is not None:
+        raise NotImplementedError(
+            "the model runs a one-process Mesh(sp=n) only; ring_attention itself "
+            "takes a mesh with a process group")
+    mesh.block(cfg.seq_len)
+
+
+def _attention(x: torch.Tensor, layer: dict, cfg: ModelConfig,
+               mesh: Mesh | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
 
@@ -169,15 +189,24 @@ def _attention(x: torch.Tensor, layer: dict, cfg: ModelConfig) -> torch.Tensor:
         return _matmul(x, w).reshape(b, s, h, dh)
 
     q, k, v = heads(layer["wq"]), heads(layer["wk"]), heads(layer["wv"])
-    ctx = flash_attention(q, k, v) if use_flash() else _einsum_attention(q, k, v)
+    if _use_ring(mesh):
+        ctx = ring_attention(q, k, v, mesh=mesh)  # f32, as the JAX ring returns it
+    elif use_flash():
+        ctx = flash_attention(q, k, v)
+    else:
+        ctx = _einsum_attention(q, k, v)
     return _matmul(ctx.reshape(b, s, h * dh), layer["wo"])
 
 
-def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
-    """tokens [batch, seq] integer → class logits [batch, n_classes], f32."""
+def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig,
+            mesh: Mesh | None = None) -> torch.Tensor:
+    """tokens [batch, seq] integer → class logits [batch, n_classes], f32.
+    ``mesh`` only changes which attention core runs (the ring under an
+    sp axis larger than 1)."""
+    _check_mesh(mesh, cfg)
     x = (params["embed"][tokens.long()] + params["pos"][None, :, :]).to(act_dtype())
     for layer in params["layers"]:
-        x = x + _attention(_layernorm(x, layer["ln1"]), layer, cfg)
+        x = x + _attention(_layernorm(x, layer["ln1"]), layer, cfg, mesh)
         y = _layernorm(x, layer["ln2"])
         y = _matmul(F.gelu(_matmul(y, layer["w1"]), approximate="tanh"), layer["w2"])
         x = x + y
@@ -186,10 +215,10 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg: ModelConfig) -> torch.Te
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor, *,
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, mesh: Mesh | None = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels`` [batch] under the
     log-softmax of the f32 logits (tasksrunner/ml/model.py:176-180)."""
-    logp = F.log_softmax(forward(params, tokens, cfg=cfg), dim=-1)
+    logp = F.log_softmax(forward(params, tokens, cfg=cfg, mesh=mesh), dim=-1)
     return -logp.gather(1, labels.long()[:, None]).mean()
 
 
@@ -207,22 +236,26 @@ def _with_leaves(leaves: list[torch.Tensor]) -> dict[str, Any]:
                        for i in range(3, len(leaves), n)]}
 
 
-def make_train_step(cfg: ModelConfig, *, learning_rate: float = 1e-3):
+def make_train_step(cfg: ModelConfig, mesh: Mesh | None = None, *,
+                    learning_rate: float = 1e-3):
     """One SGD step, ``step(params, tokens, labels) -> (params, loss)``
-    (tasksrunner/ml/model.py:211-226, without a mesh). The gradient of
+    (tasksrunner/ml/model.py:211-239; with a one-process ``mesh`` the
+    attention core is the ring and everything else is the single-device
+    step, as GSPMD computes the same function). The gradient of
     every leaf comes from ``torch.autograd.grad`` of :func:`loss_fn`;
     the f32 masters are then updated in place under ``torch.no_grad()``,
     which is what ``donate_argnums=(0,)`` lets XLA do with the JAX
     step's params: the ``params`` returned are the ones passed in, and
     no second copy is held. The loss comes back as a detached 0-d f32
     tensor; reading it waits for the step."""
+    _check_mesh(mesh, cfg)
 
     def step(params: dict, tokens: torch.Tensor,
              labels: torch.Tensor) -> tuple[dict, torch.Tensor]:
         leaves = _leaves(params)
         views = [p.detach().requires_grad_() for p in leaves]
         with torch.enable_grad():
-            loss = loss_fn(_with_leaves(views), tokens, labels, cfg=cfg)
+            loss = loss_fn(_with_leaves(views), tokens, labels, cfg=cfg, mesh=mesh)
             grads = torch.autograd.grad(loss, views)
         with torch.no_grad():
             for p, g in zip(leaves, grads):

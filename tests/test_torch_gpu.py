@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tasksrunner_torch import flash, model
+from tasksrunner_torch.mesh import Mesh
 from tasksrunner_torch.model import ModelConfig, forward, init_params
 
 pytestmark = pytest.mark.gpu
@@ -111,3 +112,56 @@ def test_f32_activation_matmul_keeps_the_f32_accumulator(card, monkeypatch):
     assert (got - want).abs().max() / scale <= 1e-5
     stored_bf16 = torch.matmul(a.to(card, torch.bfloat16), b.to(card, torch.bfloat16))
     assert (stored_bf16.float().cpu() - want).abs().max() / scale > 1e-4
+
+
+def _ring_state(gen, card, b, sq, h, d, start: bool):
+    """The ring's state at its start (-inf, 0, 0), or after one plain
+    step over another random block."""
+    m = torch.full((b, h, sq), float("-inf"), device=card)
+    num = torch.zeros(b, h, sq, d, device=card)
+    den = torch.zeros(b, h, sq, device=card)
+    if start:
+        return m, num, den
+    q, k, v = (torch.randn(b, sq, h, d, generator=gen, device=card) for _ in range(3))
+    return flash.ring_block_update_reference(q, k, v, m, num, den, scale=d ** -0.5)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 2, 32), (16, 4, 4, 4, 16),
+                                   (2, 100, 130, 4, 64), (1, 130, 100, 2, 128)],
+                         ids=lambda s: "b{}sq{}sk{}h{}d{}".format(*s))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("start", [True, False], ids=["first-step", "later-step"])
+def test_ring_kernel_matches_plain_version(card, shape, dtype, start):
+    b, sq, sk, h, d = shape
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(b, sq, h, d, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn(b, sk, h, d, generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    state = _ring_state(gen, card, b, sq, h, d, start)
+    kept = [x.clone() for x in state]
+    before = flash.ring_launches
+    got = flash.ring_block_update(q, k, v, *state, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash.ring_launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(state, kept))  # not in place
+    want = flash.ring_block_update_reference(q, k, v, *state, scale=d ** -0.5)
+    # both round P to bf16 against the same final max: m' and den' differ by
+    # f32 sums in another order (about d * 2^-24 absolute for m' near 0),
+    # num' by at most one P term's bf16 rounding
+    torch.testing.assert_close(got[0], want[0], atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(got[1], want[1], atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+
+
+def test_ring_forward_launches_the_kernel_sp_times_per_layer(card, monkeypatch):
+    monkeypatch.setenv("TASKSRUNNER_FLASH", "1")
+    cfg = ModelConfig()
+    params = init_params(cfg, 0, card)
+    tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device=card)
+    want = forward(params, tokens, cfg=cfg)
+    for sp in (2, 4):
+        before = (flash.launches, flash.ring_launches)
+        got = forward(params, tokens, cfg=cfg, mesh=Mesh(sp=sp))
+        assert (flash.launches - before[0], flash.ring_launches - before[1]) == (
+            0, cfg.n_layers * sp)
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
