@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tasksrunner_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -52,9 +52,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str]) -> None:
+def build(names: list[str]) -> dict[str, str]:
     """Compile every library of ``names`` that is not built yet: one
-    ``nvcc`` per source, all started together, all waited for."""
+    ``nvcc`` per source, all started together, all waited for. Returns
+    the compiler's output for each source it compiled: ``-Xptxas -v``
+    lists each kernel's registers, shared memory and spills."""
     started = []
     for name in names:
         out = library_path(name)
@@ -65,9 +67,10 @@ def build(names: list[str]) -> None:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         started.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failures = []
+    failures, outputs = [], {}
     for name, out, tmp, proc in started:
         stdout, stderr = proc.communicate()
+        outputs[name] = stdout + stderr
         if proc.returncode:
             failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                             f"{stdout}{stderr}")
@@ -75,6 +78,7 @@ def build(names: list[str]) -> None:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
+    return outputs
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,7 +1,9 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile loads into shared memory, the mma.sync m16n8k16 bf16 product, bf16
-// packing, quad reductions and paired stores. Every kernel here runs blocks of
-// 4 warps over 64-row tiles of a [b, s, h, d] tensor read through its strides.
+// Helpers shared by the flash-attention kernels: tile loads into shared
+// memory, the mma.sync m16n8k16 bf16 product and quad reductions for
+// flash_fwd.cu and flash_ring.cu, and the scalar ones (bf16 packing, paired
+// stores, the shared-memory opt-in) that flash_bwd.cu takes too. The mma.sync
+// kernels run blocks of 4 warps over 64-row tiles of a [b, s, h, d] tensor
+// read through its strides.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -54,9 +56,6 @@ __device__ __forceinline__ uint4 load8(const float* p) {
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
                     pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
 }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

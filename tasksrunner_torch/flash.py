@@ -7,9 +7,11 @@ launched by ``ring_block_update``).
 On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd` and
 :func:`ring_block_update` launch the hand-written kernels in
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_ring.cu``
-(mma.sync bf16 with f32 accumulation; their designs and bounds are in
-the sources). On CPU tensors they run :func:`flash_fwd_reference`,
-:func:`flash_bwd_reference` and :func:`ring_block_update_reference`, the
+(bf16 tensor-core products with f32 accumulation: mma.sync in the
+forward and the ring update, wgmma fed by TMA in the backward; their
+designs and bounds are in the sources). On CPU tensors they run
+:func:`flash_fwd_reference`, :func:`flash_bwd_reference` and
+:func:`ring_block_update_reference`, the
 plain PyTorch versions that repeat the TPU kernels' arithmetic step by
 step; the tests hold them against the Pallas kernels and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card. There
@@ -75,7 +77,9 @@ def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """Δ = Σ_d f32(dO)·f32(O) per row, [b, h, s] f32 (flash.py:229-230)."""
+    """Δ = Σ_d f32(dO)·f32(O) per row, [b, h, s] f32 (flash.py:229-230),
+    for the plain version; on the card the backward's pre-pass or its
+    main kernel computes it."""
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
@@ -140,9 +144,9 @@ _ARGTYPES = {
     # tr_flash_fwd(q, k, v, o, lse, b, s, h, d, is_bf16, strides, scale, stream)
     "flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
-    # tr_flash_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv,
+    # tr_flash_bwd(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv, staged,
     #              b, s, h, d, is_bf16, fused, strides, scale, stream)
-    "flash_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    "flash_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
     # tr_flash_ring(q, k, v, m, num, den, m_out, num_out, den_out,
     #               b, sq, sk, h, d, is_bf16, strides, scale, stream)
@@ -201,29 +205,43 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd_delta_precompute() -> bool:
     """Δ placement for the backward, as flash.py:214-220 reads it:
-    precomputed in torch (the default, kernel B2) unless
-    ``TASKSRUNNER_FLASH_BWD_DELTA=fused`` (kernel B3, Δ in the kernel)."""
+    precomputed by a pre-pass before the main kernel (the default,
+    kernel B2) unless ``TASKSRUNNER_FLASH_BWD_DELTA=fused`` (kernel B3,
+    Δ in the main kernel; with f32 IO the pre-pass computes it for both,
+    from the f32 values)."""
     return env_str("TASKSRUNNER_FLASH_BWD_DELTA", "precompute") != "fused"
 
 
 def _launch_bwd(q, k, v, out, lse, dout, scale):
+    """One call of the C entry, which enqueues the pre-pass (Δ, and bf16
+    copies of f32 inputs), the main kernel and the cast of dQ; this
+    allocates their outputs and scratch: the f32 ``dq_accum`` that the
+    main kernel reduce-adds dQ into (dQ itself for f32 IO), Δ [b, h, s]
+    unless the fused variant computes it in the kernel, and the bf16
+    copies of q, k, v, dO for f32 IO."""
     global bwd_launches, bwd_fused_launches
     _check_cuda_layout(q, k, v, out, dout)
     b, s, h, d = q.shape
     precompute = _bwd_delta_precompute()
-    delta = _delta(out, dout) if precompute else None
+    f32 = q.dtype == torch.float32
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
                   for _ in range(3))
+    dq_accum = dq if f32 else torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    delta = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+             if precompute or f32 else None)
+    staged = (torch.empty((4, b, s, h, d), dtype=torch.bfloat16, device=q.device)
+              if f32 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("flash_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if precompute else out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr() if precompute else None,
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, s, h, d, int(q.dtype == torch.bfloat16), int(not precompute),
-        _strides(q, k, v, out, dout, dq, dk, dv), float(scale), stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), None if delta is None else delta.data_ptr(), dq_accum.data_ptr(),
+        None if f32 else dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if staged is None else staged.data_ptr(),
+        b, s, h, d, int(not f32), int(not precompute),
+        _strides(q, k, v, out, dout, dk, dv), float(scale), stream)
     if err:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+        what = "a TMA tensor map could not be encoded" if err == -2 else f"CUDA error {err}"
+        raise RuntimeError(f"flash_bwd kernel launch failed: {what}")
     if precompute:
         bwd_launches += 1
     else:
@@ -236,7 +254,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward: dq, dk, dv [b, s, h, d] in the inputs' dtype
     from q, k, v, the forward's context ``out`` and LSE [b, h, s] f32,
-    and the context's gradient ``dout`` (cast to q's dtype first)."""
+    and the context's gradient ``dout`` (cast to q's dtype first). On
+    the card dQ is summed over key tiles by f32 reduce-adds in the order
+    the blocks finish, so it can differ in its last bits from run to
+    run; dK and dV do not."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("flash_bwd takes out and dout of q's shape, out in q's dtype")

@@ -55,7 +55,7 @@ def test_forward_launches_the_kernel_once_per_layer(card, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 2, 16), (8, 32, 4, 32), (2, 100, 4, 64),
-                                   (1, 130, 2, 128)],
+                                   (1, 130, 2, 128), (2, 300, 4, 64), (1, 260, 2, 128)],
                          ids=lambda s: "b{}s{}h{}d{}".format(*s))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("variant", ["precompute", "fused"])
@@ -78,6 +78,27 @@ def test_backward_kernel_matches_plain_version(card, shape, dtype, variant, monk
         # the same rounding points; f32 sums in another order can move one P
         # or dS term across a bf16 boundary, and a bf16 output by one step
         torch.testing.assert_close(g.float(), w.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("variant", ["precompute", "fused"])
+def test_backward_kernel_repeats_dk_dv_bit_for_bit(card, variant, monkeypatch):
+    """dK and dV are summed in one order inside a block, so two calls on
+    the same inputs agree bit for bit. dQ is summed over the key tiles by
+    f32 reduce-adds in the order the blocks finish: two calls agree
+    within one bf16 step of dQ."""
+    monkeypatch.setenv("TASKSRUNNER_FLASH_BWD_DELTA", variant)
+    shape = (2, 300, 4, 64)
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+                     for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = flash.flash_fwd(q, k, v, scale)
+    first = flash.flash_bwd(q, k, v, out, lse, dout, scale)
+    second = flash.flash_bwd(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert bool(((dq1 - dq2).abs() <= 2.0 ** -7 * dq1.abs() + 1e-6).all())
 
 
 def test_train_step_launches_each_kernel_once_per_layer(card, monkeypatch):
