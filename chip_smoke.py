@@ -8,7 +8,8 @@ exit, traceback) at the first phase that does not hold:
 1. device: the card's name and power limit, the CUDA version;
 2. build: every kernel of the paths compiled with nvcc from ``csrc/``,
    one nvcc per source, all started together, with ``-Xptxas -v``'s
-   registers and spills of each kernel of ``flash_bwd.cu``;
+   registers and spills of each kernel of ``flash_fwd.cu`` and
+   ``flash_bwd.cu``;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the shapes the serving, training and
    sequence-parallel paths and the bench config give it, in bf16 and
@@ -137,6 +138,9 @@ KERNEL_CASES = [  # (b, s, h, d)
     (1, 130, 2, 128),
     (2, 300, 4, 64),      # several key tiles of the backward, ragged
     (1, 260, 2, 128),
+    (1, 129, 2, 64),      # one key past the forward's 128-key tile
+    (3, 200, 2, 32),      # ragged, two key tiles, d 32
+    (3, 50, 2, 16),       # s < 64 at d 16
 ]
 
 
@@ -240,21 +244,22 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     """Builds the three sources in parallel and prints, for every kernel
-    of flash_bwd.cu, what ``-Xptxas -v`` says: registers, shared memory
-    and spills."""
+    of flash_fwd.cu and flash_bwd.cu, what ``-Xptxas -v`` says:
+    registers, shared memory and spills."""
     started = time.monotonic()
     names = ["flash_fwd", "flash_bwd", "flash_ring"]
     outputs = _kernels.build(names)
     for name in names:
         flash._kernel(name)  # load and bind
     emit({"phase": "build", "kernels": names, "seconds": time.monotonic() - started})
-    kernel = None
-    for line in outputs.get("flash_bwd", "").splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        elif kernel and ("registers" in line or "spill" in line):
-            emit({"phase": "build", "ptxas": "flash_bwd.cu", "kernel": kernel,
-                  "info": line.strip()})
+    for name in ("flash_fwd", "flash_bwd"):
+        kernel = None
+        for line in outputs.get(name, "").splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and ("registers" in line or "spill" in line):
+                emit({"phase": "build", "ptxas": f"{name}.cu", "kernel": kernel,
+                      "info": line.strip()})
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -712,7 +717,8 @@ def _time_attention(b, s, h, d) -> dict:
     bound_ms, bound_by = attention_bound(b, s, h, d, q.element_size())
     return {"shape": [b, s, h, d], "dtype": "bfloat16", "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "vs_library": kernel_ms / library_ms, "bound_share": bound_ms / kernel_ms}
 
 
 def _time_attention_bwd(b, s, h, d) -> dict:

@@ -118,13 +118,6 @@ struct Layout {
   static_assert(BYTES <= 232448, "a block has at most 227 KB of shared memory");
 };
 
-// 2^x by the special-function unit (ex2.approx, relative error about 2^-22)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <typename T>
 struct Params {
   const float* lse;    // [b, h, s]

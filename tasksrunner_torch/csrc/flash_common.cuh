@@ -1,9 +1,9 @@
 // Helpers shared by the flash-attention kernels: tile loads into shared
-// memory, the mma.sync m16n8k16 bf16 product and quad reductions for
-// flash_fwd.cu and flash_ring.cu, and the scalar ones (bf16 packing, paired
-// stores, the shared-memory opt-in) that flash_bwd.cu takes too. The mma.sync
-// kernels run blocks of 4 warps over 64-row tiles of a [b, s, h, d] tensor
-// read through its strides.
+// memory and the mma.sync m16n8k16 bf16 product for flash_ring.cu, and the
+// scalar ones (bf16 packing, ex2.approx, quad reductions, paired stores, the
+// shared-memory opt-in) that the wgmma kernels flash_fwd.cu and flash_bwd.cu
+// take too. The mma.sync kernel runs blocks of 4 warps over 64-row tiles of a
+// [b, s, h, d] tensor read through its strides.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -118,6 +118,14 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x by the special-function unit (ex2.approx, relative error about 2^-22;
+// 2^-inf is 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {

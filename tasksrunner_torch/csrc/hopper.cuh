@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels, hand-written PTX:
 // wgmma and its shared-memory descriptor, wgmma fence/commit/wait, mbarriers,
 // TMA tile loads and f32 tile reduce-adds with their bulk-group waits, named
-// barriers, setmaxnreg, and the host-side tensor-map encoding, looked up at
-// run time through the CUDA runtime (so the libraries need no -lcuda).
+// barriers (bar.sync and bar.arrive), setmaxnreg, and the host-side
+// tensor-map encoding, looked up at run time through the CUDA runtime (so the
+// libraries need no -lcuda).
 //
 // Where the layout rules come from (PTX ISA, "Asynchronous Warpgroup Level
 // Matrix Multiply-Accumulate" and "Tensor Copy"; CUDA's cuTensorMapEncodeTiled
@@ -102,8 +103,8 @@ __device__ __forceinline__ void hold(uint32_t (&x)[N][4]) {
 
 // d (+)= A . B for one m64nNk16 bf16 product with f32 accumulation; acc = 0
 // overwrites d. SS: A and B from shared memory; TA / TB set the transpose bit
-// (1 = MN-major); N = 8, 16, 32 or 64. RS: A from registers (four packed bf16
-// pairs); N = 16, 32 or 64.
+// (1 = MN-major); N = 8, 16, 32, 64 or 128. RS: A from registers (four
+// packed bf16 pairs); N = 16, 32 or 64.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t a, uint64_t b, int acc) {
   asm volatile(
@@ -208,6 +209,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
 }
 
+// SS only: the forward's S = Q . K^T over a 128-key tile in one product per
+// k16 step, so each A row block is read from shared memory once per tile
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -216,6 +248,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // id 0 is __syncthreads'
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// bar.arrive: count this thread's arrival at a named barrier without waiting
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // move registers between warpgroups; every warp of the warpgroup executes it

@@ -7,9 +7,9 @@ launched by ``ring_block_update``).
 On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd` and
 :func:`ring_block_update` launch the hand-written kernels in
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_ring.cu``
-(bf16 tensor-core products with f32 accumulation: mma.sync in the
-forward and the ring update, wgmma fed by TMA in the backward; their
-designs and bounds are in the sources). On CPU tensors they run
+(bf16 tensor-core products with f32 accumulation: wgmma fed by TMA in
+the forward and the backward, mma.sync in the ring update; their designs
+and bounds are in the sources). On CPU tensors they run
 :func:`flash_fwd_reference`, :func:`flash_bwd_reference` and
 :func:`ring_block_update_reference`, the
 plain PyTorch versions that repeat the TPU kernels' arithmetic step by
@@ -141,8 +141,9 @@ def _check_cuda_layout(*tensors: torch.Tensor) -> None:
 
 
 _ARGTYPES = {
-    # tr_flash_fwd(q, k, v, o, lse, b, s, h, d, is_bf16, strides, scale, stream)
-    "flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    # tr_flash_fwd(q, k, v, o, lse, staged, b, s, h, d, is_bf16, strides, scale,
+    #              stream)
+    "flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
     # tr_flash_bwd(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv, staged,
     #              b, s, h, d, is_bf16, fused, strides, scale, stream)
@@ -172,19 +173,32 @@ def _strides(*tensors: torch.Tensor):
         *(x.stride(i) for x in tensors for i in range(3)))
 
 
+def _launch_error(name: str, err: int) -> RuntimeError:
+    what = "a TMA tensor map could not be encoded" if err == -2 else f"CUDA error {err}"
+    return RuntimeError(f"{name} kernel launch failed: {what}")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of the C entry, which enqueues the main kernel and, for
+    f32 IO, first a pre-pass that writes bf16 copies of q, k, v; this
+    allocates the outputs and that scratch."""
     global launches
     _check_cuda_layout(q, k, v)
+    if scale < 0:  # the kernel takes scale > 0: q·(−k)ᵀ·|scale| is the same, exactly
+        k, scale = -k, -scale
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    staged = (torch.empty((3, b, s, h, d), dtype=torch.bfloat16, device=q.device)
+              if q.dtype == torch.float32 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), b, s, h, d, int(q.dtype == torch.bfloat16),
+                    lse.data_ptr(), None if staged is None else staged.data_ptr(),
+                    b, s, h, d, int(q.dtype == torch.bfloat16),
                     _strides(q, k, v, out), float(scale), stream)
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise _launch_error("flash_fwd", err)
     launches += 1
     return out, lse
 
@@ -240,8 +254,7 @@ def _launch_bwd(q, k, v, out, lse, dout, scale):
         b, s, h, d, int(not f32), int(not precompute),
         _strides(q, k, v, out, dout, dk, dv), float(scale), stream)
     if err:
-        what = "a TMA tensor map could not be encoded" if err == -2 else f"CUDA error {err}"
-        raise RuntimeError(f"flash_bwd kernel launch failed: {what}")
+        raise _launch_error("flash_bwd", err)
     if precompute:
         bwd_launches += 1
     else:

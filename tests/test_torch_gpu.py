@@ -23,7 +23,8 @@ def card():
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 2, 16), (8, 32, 4, 32), (2, 100, 4, 64),
-                                   (1, 130, 2, 128)],
+                                   (1, 130, 2, 128), (1, 129, 2, 64), (3, 200, 2, 32),
+                                   (3, 50, 2, 16)],
                          ids=lambda s: "b{}s{}h{}d{}".format(*s))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_kernel_matches_plain_version(card, shape, dtype):
@@ -34,11 +35,72 @@ def test_kernel_matches_plain_version(card, shape, dtype):
     out, lse = flash.flash_fwd(q, k, v, scale)
     torch.cuda.synchronize()
     assert flash.launches == before + 1
-    want_o, want_lse = flash.flash_fwd_reference(q, k, v, scale)
-    # p is rounded to bf16 against the running max, not the final one: one
-    # bf16 rounding of p per term, and one bf16 step of a bf16 output
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _assert_twin(out, lse, *flash.flash_fwd_reference(q, k, v, scale))
+
+
+def _assert_twin(out, lse, want_o, want_lse):
+    """The forward against its plain version: p is rounded to bf16 against
+    the running max, not the final one (one bf16 rounding of p per term,
+    and one bf16 step of a bf16 output); LSE is f32 sums in another order."""
     torch.testing.assert_close(out.float(), want_o.float(), atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_forward_kernel_repeats_bit_for_bit(card):
+    """No atomics and no order-dependent sums: two calls on the same
+    inputs give the same O and LSE, bit for bit."""
+    shape = (2, 300, 4, 64)
+    gen = torch.Generator(device=card).manual_seed(10)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+               for _ in range(3))
+    first = flash.flash_fwd(q, k, v, 0.125)
+    second = flash.flash_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_forward_kernel_reads_strided_views_of_one_fused_tensor(card, dtype):
+    """q, k, v as views of one [b, s, 3, h, d] tensor: the TMA tensor maps
+    follow their strides (s stride 3·h·d, offsets h·d apart), nothing is
+    copied, and the result equals that on contiguous copies bit for bit."""
+    b, s, h, d = 2, 200, 4, 64
+    gen = torch.Generator(device=card).manual_seed(11)
+    fused = torch.randn(b, s, 3, h, d, generator=gen, device=card).to(dtype)
+    q, k, v = fused.unbind(dim=2)
+    assert not q.is_contiguous() and q.stride(1) == 3 * h * d
+    out, lse = flash.flash_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash.flash_fwd_reference(q, k, v, d ** -0.5)
+    _assert_twin(out, lse, want_o, want_lse)
+    dense = flash.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense[0]) and torch.equal(lse, dense[1])
+
+
+def test_forward_kernel_f32_io_returns_f32_within_the_twin_tolerance(card):
+    """f32 inputs (the TASKSRUNNER_ACT_F32 path) give an f32 O and LSE that
+    agree with the plain version within the same tolerance as bf16."""
+    shape = (2, 300, 4, 64)
+    gen = torch.Generator(device=card).manual_seed(12)
+    q, k, v = (torch.randn(shape, generator=gen, device=card) for _ in range(3))
+    out, lse = flash.flash_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32 and out.shape == shape
+    _assert_twin(out, lse, *flash.flash_fwd_reference(q, k, v, 0.125))
+
+
+def test_forward_kernel_takes_a_negative_scale(card):
+    """The kernel takes scale > 0; the wrapper runs a negative scale as
+    q·(−k)ᵀ·|scale|, which is exact."""
+    shape = (1, 130, 2, 32)
+    gen = torch.Generator(device=card).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+               for _ in range(3))
+    out, lse = flash.flash_fwd(q, k, v, -0.2)
+    torch.cuda.synchronize()
+    _assert_twin(out, lse, *flash.flash_fwd_reference(q, k, v, -0.2))
 
 
 def test_forward_launches_the_kernel_once_per_layer(card, monkeypatch):
