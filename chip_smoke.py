@@ -8,13 +8,16 @@ exit, traceback) at the first phase that does not hold:
 1. device: the card's name and power limit, the CUDA version;
 2. build: every kernel of the paths compiled with nvcc from ``csrc/``,
    one nvcc per source, all started together, with ``-Xptxas -v``'s
-   registers and spills of each kernel of ``flash_fwd.cu`` and
-   ``flash_bwd.cu``;
+   registers and spills of each kernel of ``flash_fwd.cu``,
+   ``flash_bwd.cu`` (the ring's backward variant included) and
+   ``flash_ring.cu``;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch
    version on the card, at the shapes the serving, training and
    sequence-parallel paths and the bench config give it, in bf16 and
-   f32: the forward, the backward with Δ precomputed and fused, and the
-   ring block update from the ring's first step and from a later one;
+   f32: the forward, the backward with Δ precomputed and fused, the
+   ring block update from the ring's first step and from a later one
+   (and its in-place read of the visiting block against rolled inputs),
+   and the ring's backward step;
 4. matmul: the f32-activation product on the card against the CPU's;
 5. gradient: ``FlashAttention``'s gradients against autograd through
    the einsum core;
@@ -36,13 +39,15 @@ exit, traceback) at the first phase that does not hold:
     (forward and one train step) and ``Mesh(sp=2)`` at the served config
     (one train step) against the single-device flash path from the same
     params, with the launch counts set to 0 just before and read just
-    after: ``n_layers × sp`` ring launches per forward, no dense one;
+    after: ``n_layers × sp`` ring launches per forward and as many ring
+    backward launches per step, no dense one, and no rotation of K/V;
 11. times: kernel, plain version, the PyTorch library call
     (``scaled_dot_product_attention`` and its backward, timed here only
-    as a yardstick; none computes the ring's state update) and the bound,
-    from CUDA events; the forward's time per bucket and the train step's
-    at both configs; ring attention against dense attention, and the
-    sequence-parallel forward and train step;
+    as a yardstick; none computes the ring's state update or its
+    backward step) and the bound, from CUDA events; the forward's time
+    per bucket and the train step's at both configs; ring attention
+    against dense attention, and the sequence-parallel forward and train
+    step with the step's peak memory;
 12. profile: the forward's and the train step's device busy share and
     largest kernels, from ``torch.profiler``, single-device and at sp 4.
 
@@ -193,6 +198,15 @@ def attention_bwd_bound(b: int, s: int, h: int, d: int, itemsize: int) -> tuple[
     return _bound(moved, 10 * b * h * s * s * d)
 
 
+def ring_bwd_bound(b: int, s: int, h: int, d: int, itemsize: int) -> tuple[float, str]:
+    """Least time for one ring backward step on an H100: q, k, v, dO read
+    once in the IO dtype, LSE and Δ read once, the f32 dQ, dK and dV
+    accumulators read and written once, against the five products'
+    10·b·h·s²·d operations."""
+    moved = 4 * b * s * h * d * itemsize + 2 * b * h * s * 4 + 6 * b * s * h * d * 4
+    return _bound(moved, 10 * b * h * s * s * d)
+
+
 def ring_bound(b: int, sq: int, sk: int, h: int, d: int,
                itemsize: int) -> tuple[float, str]:
     """Least time for one ring block update on an H100: q, k, v read
@@ -220,13 +234,30 @@ def bwd_variant(variant: str):
 
 def reset_counts() -> None:
     flash.launches = flash.bwd_launches = flash.bwd_fused_launches = 0
-    flash.ring_launches = 0
+    flash.ring_launches = flash.ring_bwd_launches = 0
 
 
 def counts() -> dict:
     return {"flash_fwd": flash.launches, "flash_bwd_delta": flash.bwd_launches,
             "flash_bwd_fused": flash.bwd_fused_launches,
-            "flash_ring": flash.ring_launches}
+            "flash_ring": flash.ring_launches, "flash_ring_bwd": flash.ring_bwd_launches}
+
+
+@contextlib.contextmanager
+def counted_rotations():
+    """Counts the calls of ``ring._rotate`` (a K/V rotation: a roll of the
+    one-process fold, or a send to the next process) inside the block."""
+    real, calls = ring._rotate, []
+
+    def rotate(k, v, mesh):
+        calls.append(None)
+        return real(k, v, mesh)
+
+    ring._rotate = rotate
+    try:
+        yield calls
+    finally:
+        ring._rotate = real
 
 
 # -- phases -----------------------------------------------------------------
@@ -244,15 +275,16 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     """Builds the three sources in parallel and prints, for every kernel
-    of flash_fwd.cu and flash_bwd.cu, what ``-Xptxas -v`` says:
-    registers, shared memory and spills."""
+    they hold (the ring's backward is flash_bwd.cu's ``bwd_main`` with
+    RING set), what ``-Xptxas -v`` says: registers, shared memory and
+    spills."""
     started = time.monotonic()
     names = ["flash_fwd", "flash_bwd", "flash_ring"]
     outputs = _kernels.build(names)
-    for name in names:
+    for name in (*names, "flash_ring_bwd"):
         flash._kernel(name)  # load and bind
     emit({"phase": "build", "kernels": names, "seconds": time.monotonic() - started})
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in names:
         kernel = None
         for line in outputs.get(name, "").splitlines():
             if "Compiling entry function" in line:
@@ -355,6 +387,15 @@ def phase_ring_kernel_vs_plain() -> float:
                 check(ok, f"flash_ring disagrees with its plain version at "
                           f"{(b, sq, sk, h, d)} {dtype} start={start}")
                 worst = max(worst, errs[1].max().item())
+                if b % 2 == 0:  # the in-place read of the fold, rank r − 1's block
+                    shifted = flash.ring_block_update(q, k, v, *state, scale=d ** -0.5,
+                                                      shift=1, sp=2)
+                    rolled = flash.ring_block_update(q, roll_fold(k, 1, 2), roll_fold(v, 1, 2),
+                                                     *state, scale=d ** -0.5)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(shifted, rolled)),
+                          f"flash_ring's in-place read differs from rolled inputs at "
+                          f"{(b, sq, sk, h, d)} {dtype}")
     try:
         q, k, v = qkv(gen, 1, 8, 2, 48, torch.bfloat16)
         flash.ring_block_update(q, k, v, *ring_state(gen, 1, 8, 2, 48, True), scale=0.1)
@@ -362,6 +403,56 @@ def phase_ring_kernel_vs_plain() -> float:
         pass
     else:
         raise AssertionError("flash_ring accepted d_head 48")
+    return worst
+
+
+def roll_fold(x: torch.Tensor, shift: int, sp: int) -> torch.Tensor:
+    """x [b·sp, ...] with row bi·sp + r taken from row bi·sp + (r − shift)
+    mod sp: K/V rotated ``shift`` ranks along the one-process fold."""
+    return torch.roll(x.reshape(-1, sp, *x.shape[1:]), shift, dims=1).reshape(x.shape)
+
+
+def ring_grad_inputs(gen, b, s, h, d, dtype):
+    """q, k, v, dO, and the LSE and Δ of a two-block ring over them."""
+    q, k, v, dout = qkv(gen, b, s, h, d, dtype, n=4)
+    m, num, den = ring_state(gen, b, s, h, d, start=True)
+    for blk in (k, q):
+        m, num, den = flash.ring_block_update(q, blk, v, m, num, den, scale=d ** -0.5)
+    out = (num / den[..., None]).transpose(1, 2)
+    delta = (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, dout, m + torch.log(den), delta
+
+
+def phase_ring_bwd_kernel_vs_plain() -> float:
+    """The ring's backward step against its plain version at RING_CASES'
+    shapes with sk = sq (the ring's blocks are equal), bf16 and f32, into
+    accumulators holding earlier sums, reading the visiting block of
+    step 1 of a two-rank fold where the batch is even, held to the
+    backward kernels' tolerance (the same rounding points, f32 sums in
+    another order): the worst |accumulator − plain| over every case."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst = 0.0
+    for b, sq, _, h, d in RING_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs = ring_grad_inputs(gen, b, sq, h, d, dtype)
+            acc = [torch.randn(b, sq, h, d, generator=gen, device="cuda") for _ in range(3)]
+            shift, sp = (1, 2) if b % 2 == 0 else (0, 1)
+            want = [x.clone() for x in acc]
+            flash.ring_block_grad_reference(*inputs, *want, scale=d ** -0.5, shift=shift,
+                                            sp=sp)
+            flash.ring_block_grad(*inputs, *acc, scale=d ** -0.5, shift=shift, sp=sp)
+            torch.cuda.synchronize()
+            errs = [(g - w).abs() for g, w in zip(acc, want)]
+            ok = all(bool(torch.isfinite(g).all())
+                     and bool((e <= GRAD_ATOL + GRAD_RTOL * w.abs()).all())
+                     for g, w, e in zip(acc, want, errs))
+            emit({"phase": "kernel_vs_plain", "kernel": "flash_ring_bwd",
+                  "shape": [b, sq, sq, h, d], "dtype": str(dtype).split(".")[-1],
+                  "shift_sp": [shift, sp],
+                  "max_abs_err_dq_dk_dv": [e.max().item() for e in errs], "ok": ok})
+            check(ok, f"flash_ring_bwd disagrees with its plain version at "
+                      f"{(b, sq, h, d)} {dtype}")
+            worst = max(worst, *(e.max().item() for e in errs))
     return worst
 
 
@@ -553,7 +644,7 @@ def phase_serve() -> int:
     result = asyncio.run(_serve(n_requests=32))
     launches = flash.launches
     check(counts()["flash_bwd_delta"] == counts()["flash_bwd_fused"]
-          == counts()["flash_ring"] == 0,
+          == counts()["flash_ring"] == counts()["flash_ring_bwd"] == 0,
           "the served path launched a backward or ring kernel")
     batches = sum(result["stats"]["batches"].values())
     warmups = len(result["stats"]["buckets"])
@@ -616,7 +707,7 @@ def phase_train() -> dict:
     ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
           and launched == {"flash_fwd": steps * SERVED.n_layers,
                            "flash_bwd_delta": steps * SERVED.n_layers,
-                           "flash_bwd_fused": 0, "flash_ring": 0})
+                           "flash_bwd_fused": 0, "flash_ring": 0, "flash_ring_bwd": 0})
     emit({"phase": "train", "config": "served", "steps": steps, "batch": SERVED_BATCH,
           "learning_rate": SERVED_LR, "losses": losses, "launches": launched,
           "n_layers": SERVED.n_layers, "ok": ok})
@@ -637,7 +728,8 @@ def phase_train() -> dict:
     final = counts()
     for name in ("flash_fwd", *BWD_VARIANTS):
         check(final[name] > 0, f"the training path launched {name} no time")
-    check(final["flash_ring"] == 0, "the single-device training path launched flash_ring")
+    check(final["flash_ring"] == final["flash_ring_bwd"] == 0,
+          "the single-device training path launched a ring kernel")
     return final
 
 
@@ -650,12 +742,15 @@ def _step_errors(got, want, params) -> dict:
             "finite": all(bool(torch.isfinite(g).all()) for g in model._leaves(got))}
 
 
-def phase_sequence_parallel() -> int:
+def phase_sequence_parallel() -> dict:
     """The slice's main path, the model with a Mesh: the bench config's
     forward at sp 4, one train step at sp 4 and one at the served config
     at sp 2, each against the single-device flash path from the same
     params. The references run first; the launch counts are set to 0
-    just before the sequence-parallel runs and read just after."""
+    just before the sequence-parallel runs and read just after, and the
+    K/V rotations (``ring._rotate`` calls) counted around them: the
+    one-process ring reads the visiting block in place and rotates
+    nothing."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     cases = []
     for name, cfg, batch, sp in (("bench", BENCH, BENCH_BATCH, BENCH_SP),
@@ -671,6 +766,19 @@ def phase_sequence_parallel() -> int:
 
     reset_counts()
     expected = dict.fromkeys(counts(), 0)
+    with counted_rotations() as rotations:
+        _run_sequence_parallel(cases, expected)
+    launched = counts()
+    emit({"phase": "sequence_parallel", "launches": launched, "expected": expected,
+          "rotations": len(rotations)})
+    check(launched == expected, f"sequence-parallel launches {launched} != {expected}")
+    check(launched["flash_ring"] > 0 and launched["flash_ring_bwd"] > 0,
+          "the sequence-parallel path launched a ring kernel no time")
+    check(not rotations, f"the one-process ring rotated K/V {len(rotations)} times")
+    return launched
+
+
+def _run_sequence_parallel(cases, expected: dict) -> None:
     for name, cfg, batch, sp, params, tokens, labels, want_logits, want, want_loss in cases:
         if want_logits is not None:
             before = counts()
@@ -698,12 +806,8 @@ def phase_sequence_parallel() -> int:
               "loss_single_device": want_loss.item(), **errs, "ok": ok})
         check(ok, f"{name} sp {sp} train step disagrees with the single-device step")
         expected["flash_ring"] += cfg.n_layers * sp
+        expected["flash_ring_bwd"] += cfg.n_layers * sp
         del got
-    launched = counts()
-    emit({"phase": "sequence_parallel", "launches": launched, "expected": expected})
-    check(launched == expected, f"sequence-parallel launches {launched} != {expected}")
-    check(launched["flash_ring"] > 0, "the sequence-parallel path launched flash_ring no time")
-    return launched["flash_ring"]
 
 
 def _time_attention(b, s, h, d) -> dict:
@@ -767,13 +871,42 @@ def _time_ring_block(b, sq, sk, h, d) -> dict:
     bound_ms, bound_by = ring_bound(b, sq, sk, h, d, q.element_size())
     return {"shape": [b, sq, sk, h, d], "dtype": "bfloat16", "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
+
+
+def _step_peak_bytes(step, params, tokens, labels) -> int:
+    """The peak of allocated device memory over one train step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, tokens, labels)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _time_ring_bwd(b, s, h, d) -> dict:
+    """The ring's backward step on the inputs of a two-block ring: kernel,
+    plain version and bound. No single PyTorch call takes the ring's LSE
+    and Δ and adds into gradient accumulators, so there is no library
+    time."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    inputs = ring_grad_inputs(gen, b, s, h, d, torch.bfloat16)
+    acc = [torch.zeros(b, s, h, d, device="cuda") for _ in range(3)]
+    scale = d ** -0.5
+    kernel_ms = cuda_ms(lambda: flash.ring_block_grad(*inputs, *acc, scale=scale))
+    plain_ms = cuda_ms(lambda: flash.ring_block_grad_reference(*inputs, *acc, scale=scale),
+                       reps=5)
+    bound_ms, bound_by = ring_bwd_bound(b, s, h, d, 2)
+    return {"shape": [b, s, h, d], "dtype": "bfloat16", "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
 
 
 def _time_sequence_parallel() -> None:
     """Ring attention at sp 4 against the dense flash forward on the same
     global bench-shape inputs; the forward and train step of the bench
-    config at sp 4 and of the served config at sp 2."""
+    config at sp 4 and of the served config at sp 2, each beside the
+    single-device forward and step on the same params and tokens, with
+    the steps' peak device memory."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     b, s, h, d = BENCH_BATCH, BENCH.seq_len, BENCH.n_heads, BENCH.d_head
     q, k, v = qkv(gen, b, s, h, d, torch.bfloat16)
@@ -791,13 +924,23 @@ def _time_sequence_parallel() -> None:
         tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
                                device="cuda", dtype=torch.int32)
         labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
-        mesh = Mesh(sp=sp)
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: forward(params, tokens, cfg=cfg, mesh=mesh), reps=7, inner=5)
-        emit({"phase": "times", "forward": name, "sp": sp, "batch": batch, "ms": ms})
-        step = model.make_train_step(cfg, mesh)
-        ms = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
-        emit({"phase": "times", "train_step": name, "sp": sp, "batch": batch, "ms": ms})
+        fwd_ms, step_ms, peak = {}, {}, {}
+        for mesh in (Mesh(sp=sp), None):
+            key = "sp" if mesh else "single_device"
+            with torch.inference_mode():
+                fwd_ms[key] = cuda_ms(lambda: forward(params, tokens, cfg=cfg, mesh=mesh),
+                                      reps=7, inner=5)
+            step = model.make_train_step(cfg, mesh)
+            step_ms[key] = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5,
+                                   inner=3)
+            peak[key] = _step_peak_bytes(step, params, tokens, labels)
+        emit({"phase": "times", "forward": name, "sp": sp, "batch": batch,
+              "ms": fwd_ms["sp"], "single_device_ms": fwd_ms["single_device"],
+              "vs_single_device": fwd_ms["sp"] / fwd_ms["single_device"]})
+        emit({"phase": "times", "train_step": name, "sp": sp, "batch": batch,
+              "ms": step_ms["sp"], "single_device_ms": step_ms["single_device"],
+              "vs_single_device": step_ms["sp"] / step_ms["single_device"],
+              "peak_bytes": peak["sp"], "single_device_peak_bytes": peak["single_device"]})
         del params
 
 
@@ -832,12 +975,14 @@ def phase_times() -> dict:
         emit({"phase": "times", "train_step": name, "batch": batch, "ms": ms})
         del params
     for shape in ((SERVED_BATCH * SERVED_SP, 16, 16, 4, 32), RING_CASES[4]):
-        timed[shape] = _time_ring_block(*shape)
-        emit({"phase": "times", "kernel": "flash_ring", **timed[shape]})
+        timed[shape] = {"flash_ring": _time_ring_block(*shape),
+                        "flash_ring_bwd": _time_ring_bwd(*shape[:2], *shape[3:])}
+        for name in ("flash_ring", "flash_ring_bwd"):
+            emit({"phase": "times", "kernel": name, **timed[shape][name]})
     _time_sequence_parallel()
     return {"flash_fwd": timed[(32, 32, 4, 32)]["flash_fwd"],
             **{name: timed[(BENCH_BATCH, 512, 16, 64)][name] for name in BWD_VARIANTS},
-            "flash_ring": timed[RING_CASES[4]]}
+            **timed[RING_CASES[4]]}
 
 
 def _profile(fn, n: int) -> dict:
@@ -903,6 +1048,7 @@ def main() -> int:
     phase_build()
     worst_err = phase_kernel_vs_plain()
     worst_err["flash_ring"] = phase_ring_kernel_vs_plain()
+    worst_err["flash_ring_bwd"] = phase_ring_bwd_kernel_vs_plain()
     phase_matmul()
     phase_gradient()
     phase_ring()
@@ -910,7 +1056,8 @@ def main() -> int:
     launches = {"flash_fwd": phase_serve()}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
-    launches["flash_ring"] = phase_sequence_parallel()
+    sp_launches = phase_sequence_parallel()
+    launches.update({name: sp_launches[name] for name in ("flash_ring", "flash_ring_bwd")})
     timed = phase_times()
     phase_profile()
     sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",
@@ -920,7 +1067,9 @@ def main() -> int:
                "flash_bwd_fused": ("tasksrunner_torch/csrc/flash_bwd.cu",
                                    "tasksrunner/ml/flash.py:168"),
                "flash_ring": ("tasksrunner_torch/csrc/flash_ring.cu",
-                              "tasksrunner/ml/flash.py:297")}
+                              "tasksrunner/ml/flash.py:297"),
+               "flash_ring_bwd": ("tasksrunner_torch/csrc/flash_bwd.cu",
+                                  "tasksrunner/ml/ring.py:70")}
     print(smi, flush=True)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

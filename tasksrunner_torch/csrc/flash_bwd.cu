@@ -71,6 +71,19 @@
 // is taken by f32 reduce-adds in the order the blocks finish, as
 // FlashAttention-2 and -3 take it. dK and dV are deterministic.
 //
+// The ring's variant (C entry tr_flash_ring_bwd, the RING instantiation of
+// bwd_main) is ring attention's backward, in place of the VJP the JAX ring
+// takes step by step (tasksrunner/ml/ring.py:70, _block_update_bwd): with the
+// ring's final LSE and Δ = rowsum(dO * O) given, one ring step's share of the
+// gradients is this kernel's main pass for one visiting key block
+// (FlashAttention-2's backward; Liu et al. 2023's ring-attention backward).
+// It runs the main kernel alone, on bf16 IO, adds into f32 dQ, dK and dV
+// accumulators that it does not zero, and reads the visiting block in place
+// of the ring's fold (flash_ring.cu). Its bound per call at the bench shape
+// (b 128, s 128, h 16, d 64): q, k, v, dO in bf16, LSE and Δ, dQ, dK and dV
+// read and written once in f32, about 0.54 GB or 0.16 ms at 3.35 TB/s,
+// against 10*b*h*s*s*d operations for 22 us: set by bytes.
+//
 // Its times on the card, its registers and spills, and what they show are in
 // PERF.md.
 
@@ -122,13 +135,19 @@ template <typename T>
 struct Params {
   const float* lse;    // [b, h, s]
   const float* delta;  // [b, h, s], unless Δ is computed in the kernel
-  T *dk, *dv;
+  T *dk, *dv;          // the ring's variant: f32 accumulators it adds into
   Axis dk_st, dv_st;
   int s, h;
+  int shift, sp;  // the ring's variant: the visiting block (flash_ring.cu)
   float scale;
 };
 
-template <typename T, int D, bool DELTA_IN>
+// RING: the ring's variant (tr_flash_ring_bwd). Δ and LSE are given, dQ is
+// reduce-added into an accumulator the call does not zero, and dK/dV are
+// added into f32 accumulators of the visiting block: folded row bi * sp + r
+// reads K/V of row bi * sp + (r - shift) mod sp and adds into that row's dK/dV
+// (for one shift that map is a permutation, so no two blocks write one row)
+template <typename T, int D, bool DELTA_IN, bool RING>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     bwd_main(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
@@ -144,6 +163,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 
   const int n0 = blockIdx.x * BN, head = blockIdx.y, batch = blockIdx.z;
   const int s = p.s, n_tiles = (s + BM - 1) / BM;
+  const int rank = batch % p.sp;
+  const int kv_batch = RING ? batch - rank + (rank - p.shift + p.sp) % p.sp : batch;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -165,9 +186,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
       hopper::mbar_arrive_expect_tx(kv_bar, 2 * L::KV);
       for (int bb = 0; bb < NB; ++bb) {
         hopper::tma_load_4d(base + L::K_OFF + bb * BN * SW, &tm_k, kv_bar, bb * NA, head, n0,
-                            batch);
+                            kv_batch);
         hopper::tma_load_4d(base + L::V_OFF + bb * BN * SW, &tm_v, kv_bar, bb * NA, head, n0,
-                            batch);
+                            kv_batch);
       }
     }
     const int64_t bh = (static_cast<int64_t>(batch) * p.h + head) * s;
@@ -378,20 +399,42 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     }
     if (tid == 0) hopper::bulk_wait<0>();
 
-    // dK and dV, once, in the IO dtype
-    T* dkp = p.dk + batch * p.dk_st.b + head * p.dk_st.h;
-    T* dvp = p.dv + batch * p.dv_st.b + head * p.dv_st.h;
+    // dK and dV, once, in the IO dtype (the ring's variant: added into the
+    // visiting block's f32 accumulators)
+    T* dkp = p.dk + kv_batch * p.dk_st.b + head * p.dk_st.h;
+    T* dvp = p.dv + kv_batch * p.dv_st.b + head * p.dv_st.h;
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int row = key + 8 * h2;
       if (row >= s) continue;
+      T* krow = dkp + row * p.dk_st.s + 2 * t;
+      T* vrow = dvp + row * p.dv_st.s + 2 * t;
+      // the ring's variant: the row's earlier sums, every load issued before
+      // the first store (a store could alias a later load, so the compiler
+      // would otherwise wait out one memory round trip per pair)
+      float2 k0[NB][NA / 8], v0[NB][NA / 8];
+      if constexpr (RING) {
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb)
+#pragma unroll
+          for (int j = 0; j < NA / 8; ++j) {
+            k0[bb][j] = *reinterpret_cast<const float2*>(krow + bb * NA + 8 * j);
+            v0[bb][j] = *reinterpret_cast<const float2*>(vrow + bb * NA + 8 * j);
+          }
+      }
 #pragma unroll
       for (int bb = 0; bb < NB; ++bb) {
 #pragma unroll
         for (int j = 0; j < NA / 8; ++j) {
-          const int col = bb * NA + 8 * j + 2 * t;
-          store2(dkp + row * p.dk_st.s + col, dk[bb][4 * j + 2 * h2], dk[bb][4 * j + 2 * h2 + 1]);
-          store2(dvp + row * p.dv_st.s + col, dv[bb][4 * j + 2 * h2], dv[bb][4 * j + 2 * h2 + 1]);
+          const float* k2 = &dk[bb][4 * j + 2 * h2];
+          const float* v2 = &dv[bb][4 * j + 2 * h2];
+          if constexpr (RING) {
+            store2(krow + bb * NA + 8 * j, k0[bb][j].x + k2[0], k0[bb][j].y + k2[1]);
+            store2(vrow + bb * NA + 8 * j, v0[bb][j].x + v2[0], v0[bb][j].y + v2[1]);
+          } else {
+            store2(krow + bb * NA + 8 * j, k2[0], k2[1]);
+            store2(vrow + bb * NA + 8 * j, v2[0], v2[1]);
+          }
         }
       }
     }
@@ -489,11 +532,12 @@ struct Call {
   int b, s, h;
   float scale;
   cudaStream_t stream;
+  int shift = 0, sp = 1;
 };
 
 constexpr int ERR_TENSOR_MAP = -2;
 
-template <typename T, int D, bool DELTA_IN>
+template <typename T, int D, bool DELTA_IN, bool RING = false>
 int launch_main(const Call& c, const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                 const bf16* o, const Axis (&st)[5]) {
   using L = Layout<D, DELTA_IN>;
@@ -511,11 +555,11 @@ int launch_main(const Call& c, const bf16* q, const bf16* k, const bf16* v, cons
                           BM))
     return ERR_TENSOR_MAP;
   const Params<T> p{c.lse, c.delta, static_cast<T*>(c.dk), static_cast<T*>(c.dv),
-                    c.dk_st, c.dv_st, c.s, c.h, c.scale};
-  const int err = allow_smem(bwd_main<T, D, DELTA_IN>, L::BYTES);
+                    c.dk_st, c.dv_st, c.s, c.h, c.shift, c.sp, c.scale};
+  const int err = allow_smem(bwd_main<T, D, DELTA_IN, RING>, L::BYTES);
   if (err) return err;
   const dim3 grid((c.s + BN - 1) / BN, c.h, c.b);
-  bwd_main<T, D, DELTA_IN><<<grid, BLOCK_THREADS, L::BYTES, c.stream>>>(
+  bwd_main<T, D, DELTA_IN, RING><<<grid, BLOCK_THREADS, L::BYTES, c.stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -572,6 +616,16 @@ int run(const Call& c, bool is_bf16, bool fused) {
   return is_bf16 ? run_bf16<D>(c, fused) : run_f32<D>(c);
 }
 
+// the ring's variant: the main kernel alone, bf16 IO, f32 accumulators
+template <int D>
+int run_ring(const Call& c) {
+  const Axis st[5] = {c.q_st, c.k_st, c.v_st, c.g_st, c.g_st};
+  const bf16* g = static_cast<const bf16*>(c.g);
+  return launch_main<float, D, false, true>(c, static_cast<const bf16*>(c.q),
+                                            static_cast<const bf16*>(c.k),
+                                            static_cast<const bf16*>(c.v), g, g, st);
+}
+
 }  // namespace
 
 // C entry, bound with ctypes by tasksrunner_torch/flash.py. strides holds the
@@ -602,6 +656,46 @@ extern "C" int tr_flash_bwd(const void* q, const void* k, const void* v, const v
     case 32: return run<32>(c, is_bf16, fused);
     case 64: return run<64>(c, is_bf16, fused);
     case 128: return run<128>(c, is_bf16, fused);
+    default: return -1;
+  }
+}
+
+// C entry of the ring's variant, bound with ctypes by tasksrunner_torch/flash.py
+// (ring_block_grad): one ring step's share of the gradients, for q of the
+// rank's rows and the visiting K/V block,
+//
+//   P = exp(S - LSE),  dV_blk += P^T dO,  dS = P * (dO . V_blk^T - Δ) * scale,
+//   dQ += dS . K_blk,  dK_blk += dS^T . Q
+//
+// with the rounding points of tr_flash_bwd. q, k, v and dO are bf16 [b, s, h,
+// d] (sq = sk = s), read through the b, s, h element strides in ``strides``
+// (12 values, q, k, v, dO in order); lse and delta [b, h, s] f32 are given
+// (the ring's final LSE and rowsum(dO * O)); dq_accum, dk_accum and dv_accum
+// are contiguous f32 [b, s, h, d] that the kernel adds into and never zeroes
+// (dQ by TMA reduce-adds, so its last bits can change from run to run; dK and
+// dV by one read and one write of each element). 0 <= shift < sp, sp divides
+// b: folded row bi * sp + r reads K/V and adds into dK/dV of row
+// bi * sp + (r - shift) mod sp. Returns as tr_flash_bwd does; it does not
+// synchronise and allocates nothing.
+extern "C" int tr_flash_ring_bwd(const void* q, const void* k, const void* v, const void* g,
+                                 const void* lse, const void* delta, void* dq_accum,
+                                 void* dk_accum, void* dv_accum, int b, int s, int h, int d,
+                                 const int64_t* strides, float scale, int shift, int sp,
+                                 void* stream) {
+  Axis ax[4];
+  for (int i = 0; i < 4; ++i) ax[i] = Axis{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int64_t hd = static_cast<int64_t>(h) * d;
+  const Axis dense{s * hd, hd, d};
+  const Call c{q,      k,      v,      nullptr, g,     ax[0],
+               ax[1],  ax[2],  ax[3],  ax[3],   dense, dense,
+               static_cast<const float*>(lse), const_cast<float*>(static_cast<const float*>(delta)),
+               static_cast<float*>(dq_accum), nullptr, dk_accum, dv_accum, nullptr, b, s, h,
+               scale, static_cast<cudaStream_t>(stream), shift, sp};
+  switch (d) {
+    case 16: return run_ring<16>(c);
+    case 32: return run_ring<32>(c);
+    case 64: return run_ring<64>(c);
+    case 128: return run_ring<128>(c);
     default: return -1;
   }
 }

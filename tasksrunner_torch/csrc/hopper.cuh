@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels, hand-written PTX:
 // wgmma and its shared-memory descriptor, wgmma fence/commit/wait, mbarriers,
-// TMA tile loads and f32 tile reduce-adds with their bulk-group waits, named
+// TMA tile loads, stores and f32 tile reduce-adds with their bulk-group waits, named
 // barriers (bar.sync and bar.arrive), setmaxnreg, and the host-side
 // tensor-map encoding, looked up at run time through the CUDA runtime (so the
 // libraries need no -lcuda).
@@ -326,6 +326,18 @@ __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32
                                                   int c1, int c2, int c3) {
   asm volatile(
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: store a box in shared memory at src to a 4-D tensor map at coordinates
+// (c0 innermost .. c3), in this thread's bulk group; the parts of the box
+// outside the tensor are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");

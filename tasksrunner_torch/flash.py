@@ -2,23 +2,24 @@
 kernel (``_fwd_kernel``, launched by ``_flash_fwd``), its two backward
 kernels (``_bwd_kernel_delta`` and ``_bwd_kernel``, launched by
 ``_flash_bwd_call``) and the ring block update (``_ring_block_kernel``,
-launched by ``ring_block_update``).
+launched by ``ring_block_update``), and the ring's backward step
+(:func:`ring_block_grad`, in place of the VJP of
+``tasksrunner/ml/ring.py``'s block update).
 
-On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd` and
-:func:`ring_block_update` launch the hand-written kernels in
-``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` and ``csrc/flash_ring.cu``
-(bf16 tensor-core products with f32 accumulation: wgmma fed by TMA in
-the forward and the backward, mma.sync in the ring update; their designs
-and bounds are in the sources). On CPU tensors they run
-:func:`flash_fwd_reference`, :func:`flash_bwd_reference` and
-:func:`ring_block_update_reference`, the
-plain PyTorch versions that repeat the TPU kernels' arithmetic step by
-step; the tests hold them against the Pallas kernels and
-``chip_smoke.py`` holds the CUDA kernels against them on the card. There
-is no fallback from a kernel to its plain version. :class:`FlashAttention`
-ties the first two into one differentiable op, as ``jax.custom_vjp``
-does in the reference; ``ring.RingBlockUpdate`` does the same for the
-block update.
+On CUDA tensors :func:`flash_fwd`, :func:`flash_bwd`,
+:func:`ring_block_update` and :func:`ring_block_grad` launch the
+hand-written kernels in ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` (the
+last two entries) and ``csrc/flash_ring.cu`` (bf16 wgmma products with f32
+accumulation, fed by TMA; their designs and bounds are in the sources).
+On CPU tensors they run :func:`flash_fwd_reference`,
+:func:`flash_bwd_reference`, :func:`ring_block_update_reference` and
+:func:`ring_block_grad_reference`, the plain PyTorch versions that repeat
+the kernels' arithmetic step by step; the tests hold them against the
+JAX package and ``chip_smoke.py`` holds the CUDA kernels against them on
+the card. There is no fallback from a kernel to its plain version.
+:class:`FlashAttention` ties the first two into one differentiable op, as
+``jax.custom_vjp`` does in the reference; ``ring.RingAttention`` ties the
+last two into the ring's.
 
 The public layout is the model's ``[batch, seq, heads, d_head]``; the
 kernels read it through its strides, so nothing is transposed.
@@ -38,12 +39,14 @@ HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_YZ = 65535
 
 #: launches of the CUDA kernels since the counts were last set to 0: the
-#: forward, the default backward (Δ precomputed), the fused-Δ backward and
-#: the ring block update; the plain versions on the CPU do not count
+#: forward, the default backward (Δ precomputed), the fused-Δ backward, the
+#: ring block update and the ring's backward step; the plain versions on
+#: the CPU do not count
 launches = 0
 bwd_launches = 0
 bwd_fused_launches = 0
 ring_launches = 0
+ring_bwd_launches = 0
 
 _entries: dict = {}
 
@@ -94,16 +97,23 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unless ``delta`` [b, h, s] is given; dS = P∘(dP − Δ)·scale; dQ =
     bf16(dS)·bf16(k) and dK = bf16(dS)ᵀ·bf16(q), in the inputs' dtype."""
     dout = dout.to(q.dtype)
+    if delta is None:
+        delta = _delta(out, dout)
+    grads = _bwd_terms(q, k, v, dout, lse, delta, scale)
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def _bwd_terms(q, k, v, dout, lse, delta, scale):
+    """dq, dk, dv in f32 from P = exp(bf16(q)·bf16(k)ᵀ·scale − LSE) and Δ,
+    rounding to bf16 where the TPU backward's ``_dot`` rounds."""
     qf, kf, vf, gf = (_bf16_f32(x) for x in (q, k, v, dout))
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_f32(p), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    if delta is None:
-        delta = _delta(out, dout)
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", _bf16_f32(ds), kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", _bf16_f32(ds), qf)
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    return dq, dk, dv
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -149,19 +159,27 @@ _ARGTYPES = {
     #              b, s, h, d, is_bf16, fused, strides, scale, stream)
     "flash_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
-    # tr_flash_ring(q, k, v, m, num, den, m_out, num_out, den_out,
-    #               b, sq, sk, h, d, is_bf16, strides, scale, stream)
-    "flash_ring": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    # tr_flash_ring(q, k, v, m, num, den, m_out, num_out, den_out, staged,
+    #               b, sq, sk, h, d, is_bf16, shift, sp, strides, scale, stream)
+    "flash_ring": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p],
+    # tr_flash_ring_bwd(q, k, v, dout, lse, delta, dq_accum, dk_accum, dv_accum,
+    #                   b, s, h, d, strides, scale, shift, sp, stream)
+    "flash_ring_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
 }
+
+#: the source of each C entry that does not live in ``csrc/<entry>.cu``
+_SOURCES = {"flash_ring_bwd": "flash_bwd"}
 
 
 def _kernel(name: str = "flash_fwd"):
-    """The bound C entry ``tr_<name>`` of ``csrc/<name>.cu``, built and
-    loaded at first use."""
+    """The bound C entry ``tr_<name>`` of ``csrc/<name>.cu`` (or of the
+    source ``_SOURCES`` names), built and loaded at first use."""
     fn = _entries.get(name)
     if fn is None:
-        fn = getattr(_kernels.library(name), f"tr_{name}")
+        fn = getattr(_kernels.library(_SOURCES.get(name, name)), f"tr_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -319,8 +337,8 @@ def ring_block_update_reference(q: torch.Tensor, k_blk: torch.Tensor,
     ``scale``; m′ = max(m, rowmax S); c = exp(m − m′); P = exp(S − m′)
     in f32; num′ = num·c + bf16(P)·bf16(v); den′ = den·c + ΣP. q is
     [b, sq, h, d], k and v [b, sk, h, d]; m and den [b, h, sq] and num
-    [b, h, sq, d], all f32. Differentiable by plain autograd: the ring's
-    backward runs through it."""
+    [b, h, sq, d], all f32. Differentiable by plain autograd: the plain
+    ring's backward runs through it."""
     logits = torch.einsum("bqhd,bkhd->bhqk", _bf16_f32(q), _bf16_f32(k_blk)) * scale
     m_new = torch.maximum(m, logits.amax(dim=-1))
     correction = torch.exp(m - m_new)
@@ -355,40 +373,145 @@ def _check_ring(q, k_blk, v_blk, m, num, den) -> None:
         raise ValueError("the ring block update takes every input on one device")
 
 
-def _launch_ring(q, k_blk, v_blk, m, num, den, scale):
+def _check_fold(b: int, shift: int, sp: int) -> None:
+    if sp < 1 or b % sp or not 0 <= shift < sp:
+        raise ValueError(f"a ring step takes sp >= 1 dividing the batch {b} and "
+                         f"0 <= shift < sp; got shift {shift}, sp {sp}")
+
+
+def _visiting_rows(b: int, shift: int, sp: int, device) -> torch.Tensor:
+    """Row bi·sp + (r − shift) mod sp for each row bi·sp + r of a folded
+    batch of ``b`` rows: the block that visits rank r at ring step
+    ``shift``, where the one-process ring folds its sp ranks into the
+    batch."""
+    rows = torch.arange(b, device=device)
+    rank = rows % sp
+    return rows - rank + (rank - shift) % sp
+
+
+def _launch_ring(q, k_blk, v_blk, m, num, den, scale, shift, sp):
+    """One call of the C entry, which enqueues, for f32 IO, a pre-pass that
+    writes bf16 copies of q, k, v, then the main kernel; this allocates the
+    outputs and that scratch."""
     global ring_launches
     _check_cuda_layout(q, k_blk, v_blk)
     if any(not x.is_contiguous() or x.data_ptr() % 16 for x in (m, num, den)):
         raise ValueError("the ring kernel reads m, num and den contiguous and 16-byte "
                          "aligned (call .contiguous() first)")
+    if scale < 0:  # the kernel takes scale > 0: q·(−k)ᵀ·|scale| is the same, exactly
+        k_blk, scale = -k_blk, -scale
     b, sq, h, d = q.shape
+    sk = k_blk.shape[1]
     m_out, den_out = torch.empty_like(m), torch.empty_like(den)
     num_out = torch.empty_like(num)
+    staged = (torch.empty((b, sq + 2 * sk, h, d), dtype=torch.bfloat16, device=q.device)
+              if q.dtype == torch.float32 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("flash_ring")(
         q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(), num.data_ptr(),
         den.data_ptr(), m_out.data_ptr(), num_out.data_ptr(), den_out.data_ptr(),
-        b, sq, k_blk.shape[1], h, d, int(q.dtype == torch.bfloat16),
+        None if staged is None else staged.data_ptr(),
+        b, sq, sk, h, d, int(q.dtype == torch.bfloat16), shift, sp,
         _strides(q, k_blk, v_blk), float(scale), stream)
     if err:
-        raise RuntimeError(f"flash_ring kernel launch failed: CUDA error {err}")
+        raise _launch_error("flash_ring", err)
     ring_launches += 1
     return m_out, num_out, den_out
 
 
 def ring_block_update(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
                       m: torch.Tensor, num: torch.Tensor, den: torch.Tensor, *,
-                      scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      scale: float, shift: int = 0, sp: int = 1
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The ring step's state update (see
     :func:`ring_block_update_reference`) as one kernel: (m′, num′, den′)
-    in new f32 buffers; the inputs are left as they are, since the ring's
-    backward reads them. Forward only."""
+    in new f32 buffers; the inputs are left as they are. With ``sp`` > 1
+    the batch is the one-process ring's fold and row bi·sp + r takes the
+    K/V of row bi·sp + (r − ``shift``) mod sp, read in place (on the CPU
+    gathered first). Forward only."""
     _check_ring(q, k_blk, v_blk, m, num, den)
+    _check_fold(q.shape[0], shift, sp)
     if q.device.type == "cpu":
+        if shift:
+            rows = _visiting_rows(q.shape[0], shift, sp, q.device)
+            k_blk, v_blk = k_blk.index_select(0, rows), v_blk.index_select(0, rows)
         return ring_block_update_reference(q, k_blk, v_blk, m, num, den, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"ring_block_update runs on cuda or cpu tensors, not {q.device}")
-    return _launch_ring(q, k_blk, v_blk, m, num, den, scale)
+    return _launch_ring(q, k_blk, v_blk, m, num, den, scale, shift, sp)
+
+
+def ring_block_grad_reference(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+                              dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                              dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
+                              scale: float, shift: int = 0, sp: int = 1) -> None:
+    """One ring step's share of the gradients, in plain PyTorch in f32 on
+    the inputs' device, added in place into the f32 accumulators dq
+    (rows of q) and dk, dv (rows of the visiting block): with the ring's
+    final LSE and Δ = rowsum(dO∘O) [b, h, s], P = exp(bf16(q)·bf16(k)ᵀ·
+    scale − LSE), dV += bf16(P)ᵀ·bf16(dO), dS = P∘(bf16(dO)·bf16(v)ᵀ −
+    Δ)·scale, dQ += bf16(dS)·bf16(k), dK += bf16(dS)ᵀ·bf16(q), rounding
+    where :func:`flash_bwd_reference` rounds. ``shift`` and ``sp`` pick the
+    visiting rows as :func:`ring_block_update` does."""
+    rows = _visiting_rows(q.shape[0], shift, sp, q.device)
+    gq, gk, gv = _bwd_terms(q, k_blk.index_select(0, rows), v_blk.index_select(0, rows),
+                            dout, lse, delta, scale)
+    dq += gq
+    dk.index_add_(0, rows, gk)
+    dv.index_add_(0, rows, gv)
+
+
+def _check_ring_grad(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv) -> None:
+    _check(q, k_blk, v_blk)
+    b, s, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("the ring's backward step takes dout of q's shape and dtype")
+    for name, x, shape in (("lse", lse, (b, h, s)), ("delta", delta, (b, h, s)),
+                           ("dq", dq, q.shape), ("dk", dk, q.shape), ("dv", dv, q.shape)):
+        if x.shape != shape or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"the ring's backward step takes a contiguous f32 {name} of "
+                             f"shape {tuple(shape)}; got {tuple(x.shape)} {x.dtype}")
+    if any(x.device != q.device for x in (dout, lse, delta, dq, dk, dv)):
+        raise ValueError("the ring's backward step takes every input on one device")
+
+
+def _launch_ring_bwd(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv, scale, shift, sp):
+    global ring_bwd_launches
+    if q.dtype == torch.float32:  # the kernel reads bf16, as it rounds there
+        q, k_blk, v_blk, dout = (x.to(torch.bfloat16) for x in (q, k_blk, v_blk, dout))
+    _check_cuda_layout(q, k_blk, v_blk, dout)
+    if any(x.data_ptr() % 16 for x in (lse, delta, dq, dk, dv)):
+        raise ValueError("the ring's backward kernel needs 16-byte aligned f32 buffers")
+    b, s, h, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel("flash_ring_bwd")(
+        q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d,
+        _strides(q, k_blk, v_blk, dout), float(scale), shift, sp, stream)
+    if err:
+        raise _launch_error("flash_ring_bwd", err)
+    ring_bwd_launches += 1
+
+
+def ring_block_grad(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+                    dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
+                    scale: float, shift: int = 0, sp: int = 1) -> None:
+    """One ring step's share of the gradients (see
+    :func:`ring_block_grad_reference`) as one kernel, added into the f32
+    accumulators dq, dk, dv [b, s, h, d]; q, k, v and dout [b, s, h, d]
+    (bf16 or f32, one shape: the ring's blocks are equal). On the card dQ
+    is added by f32 reduce-adds over the key tiles in the order the blocks
+    finish, so for s > 128 its last bits can change from run to run."""
+    _check_ring_grad(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv)
+    _check_fold(q.shape[0], shift, sp)
+    if q.device.type == "cpu":
+        ring_block_grad_reference(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv,
+                                  scale=scale, shift=shift, sp=sp)
+    elif q.device.type == "cuda":
+        _launch_ring_bwd(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv, scale, shift, sp)
+    else:
+        raise ValueError(f"ring_block_grad runs on cuda or cpu tensors, not {q.device}")
 
 
 def _resolve_scale(q: torch.Tensor, scale: float | None) -> float:

@@ -2,21 +2,31 @@
 attention with the sequence split over the ``sp`` ranks of a
 :class:`~tasksrunner_torch.mesh.Mesh`.
 
-Each rank holds one sequence block of q, k and v. K and V rotate one
-rank forward n times (rank i sends to i + 1), and at each step every
-rank folds the block it holds into the running softmax state (max m,
-numerator num, denominator den) of its own queries. The fold is
-:class:`RingBlockUpdate`: its forward is ``flash.ring_block_update``,
-the kernel of ``csrc/flash_ring.cu`` on the card; its backward
-differentiates the plain update, as the JAX custom VJP does. With
-``TASKSRUNNER_FLASH`` off the ring runs the plain update throughout.
+Each rank holds one sequence block of q, k and v. K and V visit every
+rank in turn (rank i's block reaches rank i + j at step j), and at each
+step every rank folds the visiting block into the running softmax state
+(max m, numerator num, denominator den) of its own queries.
+
+With ``TASKSRUNNER_FLASH`` on (the default) the whole ring is one
+autograd node, :class:`RingAttention`: its forward runs the steps with
+``flash.ring_block_update`` (the kernel of ``csrc/flash_ring.cu`` on the
+card) and keeps only q, k, v, the context and its log-sum-exp; its
+backward is a second pass over the ring with ``flash.ring_block_grad``
+(the ring variant of ``csrc/flash_bwd.cu``), FlashAttention-2's backward
+for one visiting block at a time. With ``TASKSRUNNER_FLASH=0`` the ring
+runs the plain update step by step and autograd differentiates it, as
+the JAX ring differentiates its einsum update. :class:`RingBlockUpdate`
+is the one-step counterpart of the JAX custom VJP (kernel forward, plain
+update's gradient).
 
 With ``Mesh(sp=n)`` (one process) the n blocks are folded into the batch,
-[b, s, h, d] → [b·n, s/n, h, d] (a view), and a rotation is a
-``torch.roll`` along the n axis: one kernel launch per step covers every
-rank's block. With ``Mesh(sp=n, group=g)`` a rotation is a
-``dist.batch_isend_irecv`` between neighbouring processes, whose
-backward sends the gradient one rank back.
+[b, s, h, d] → [b·n, s/n, h, d] (a view). Under :class:`RingAttention`
+the kernels read the visiting block of step j in place, from row
+bi·n + (r − j) mod n of the fold, and nothing rotates; the plain ring
+rotates with ``torch.roll``. With ``Mesh(sp=n, group=g)`` a rotation is
+a ``dist.batch_isend_irecv`` between neighbouring processes; in the
+backward, K, V and their gradient accumulators travel the ring together
+and the accumulators end at their home rank.
 """
 
 from __future__ import annotations
@@ -91,7 +101,8 @@ class _RotateP2P(torch.autograd.Function):
 def _rotate(k: torch.Tensor, v: torch.Tensor,
             mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
     """K and V one sp rank forward: between processes with a group, else
-    along the n axis of the folded batch [b·n, ...] (rank r ← rank r − 1)."""
+    along the n axis of the folded batch [b·n, ...] (rank r ← rank r − 1),
+    which only the plain ring does."""
     if mesh.group is not None:
         return _RotateP2P.apply(mesh.group, k, v)
 
@@ -101,24 +112,89 @@ def _rotate(k: torch.Tensor, v: torch.Tensor,
     return roll(k), roll(v)
 
 
-def _ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          mesh: Mesh, scale: float) -> torch.Tensor:
-    """The per-rank body (ring.py:79-109) over q/k/v [b, s_block, h, d]:
-    the context block [b, s_block, h, d] in f32."""
-    n = mesh.sp
+def _initial_state(q: torch.Tensor):
     b, sq, h, d = q.shape
-    m = torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q.device)
-    num = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    den = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    fast = flash.use_flash()
-    for step in range(n):
-        if fast:
-            m, num, den = RingBlockUpdate.apply(q, k, v, m, num, den, scale)
-        else:
-            m, num, den = _block_update(q, k, v, m, num, den, scale=scale)
-        if step < n - 1:  # the last rotation would only bring K/V home
+    return (torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q.device),
+            torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device),
+            torch.zeros((b, h, sq), dtype=torch.float32, device=q.device))
+
+
+def _ring_per_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh: Mesh,
+                   scale: float, update=_block_update) -> torch.Tensor:
+    """The per-rank body (ring.py:79-109) step by step over q/k/v
+    [b, s_block, h, d], with ``update`` folding each visiting block and
+    autograd differentiating every step: the context block
+    [b, s_block, h, d] in f32."""
+    m, num, den = _initial_state(q)
+    for step in range(mesh.sp):
+        m, num, den = update(q, k, v, m, num, den, scale=scale)
+        if step < mesh.sp - 1:  # the last rotation would only bring K/V home
             k, v = _rotate(k, v, mesh)
     return (num / den[..., None]).transpose(1, 2)
+
+
+class RingAttention(torch.autograd.Function):
+    """The whole ring as one differentiable op over the kernels.
+
+    Forward: the sp steps of ``flash.ring_block_update`` without autograd;
+    it keeps q, k, v, the context O = num/den and LSE = m + log den
+    [b, h, s_block] f32, and no per-step state. Backward: with Δ =
+    rowsum(dO∘O), the block visiting at step j adds its share of dQ, dK,
+    dV (``flash.ring_block_grad``) into f32 accumulators, cast once at the
+    end. In one process both passes read the visiting block in place of
+    the fold; over a group K and V rotate, and in the backward their dK
+    and dV accumulators travel with them and take one more step home."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, scale):
+        n = mesh.sp
+        m, num, den = _initial_state(q)
+        k_blk, v_blk = k, v
+        for step in range(n):
+            if mesh.group is None:
+                m, num, den = flash.ring_block_update(q, k, v, m, num, den, scale=scale,
+                                                      shift=step, sp=n)
+            else:
+                m, num, den = flash.ring_block_update(q, k_blk, v_blk, m, num, den,
+                                                      scale=scale)
+                if step < n - 1:  # the last rotation would only bring K/V home
+                    k_blk, v_blk = _rotate(k_blk, v_blk, mesh)
+        out = (num / den[..., None]).transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(den))
+        ctx.mesh, ctx.scale = mesh, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        mesh, n = ctx.mesh, ctx.mesh.sp
+        delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                      for x in (q, k, v))
+        k_blk, v_blk = k, v
+        for step in range(n):
+            if mesh.group is None:
+                flash.ring_block_grad(q, k, v, dout, lse, delta, dq, dk, dv,
+                                      scale=ctx.scale, shift=step, sp=n)
+                continue
+            flash.ring_block_grad(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv,
+                                  scale=ctx.scale)
+            if step < n - 1:
+                k_blk, v_blk, dk, dv = _send_recv(mesh.group, (k_blk, v_blk, dk, dv), 1)
+            elif n > 1:  # the accumulators of rank r + 1's block, one step home
+                dk, dv = _send_recv(mesh.group, (dk, dv), 1)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def _ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          mesh: Mesh, scale: float) -> torch.Tensor:
+    """The per-rank body over q/k/v [b, s_block, h, d] (the one-process
+    fold or a group rank's shard): the context block [b, s_block, h, d]
+    in f32."""
+    if flash.use_flash():
+        return RingAttention.apply(q, k, v, mesh, scale)
+    return _ring_per_step(q, k, v, mesh=mesh, scale=scale)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
