@@ -17,7 +17,7 @@ exit, traceback) at the first phase that does not hold:
    f32: the forward, the backward with Δ precomputed and fused, the
    ring block update from the ring's first step and from a later one
    (and its in-place read of the visiting block against rolled inputs),
-   and the ring's backward step;
+   and the ring's backward step at every step of a ring of sp 4;
 4. matmul: the f32-activation product on the card against the CPU's;
 5. gradient: ``FlashAttention``'s gradients against autograd through
    the einsum core;
@@ -46,8 +46,9 @@ exit, traceback) at the first phase that does not hold:
     as a yardstick; none computes the ring's state update or its
     backward step) and the bound, from CUDA events; the forward's time
     per bucket and the train step's at both configs; ring attention
-    against dense attention, and the sequence-parallel forward and train
-    step with the step's peak memory;
+    against dense attention, the sequence-parallel forward and train
+    step with the step's peak memory, and the host's cost per call on
+    the served sp-2 path;
 12. profile: the forward's and the train step's device busy share and
     largest kernels, from ``torch.profiler``, single-device and at sp 4.
 
@@ -412,47 +413,75 @@ def roll_fold(x: torch.Tensor, shift: int, sp: int) -> torch.Tensor:
     return torch.roll(x.reshape(-1, sp, *x.shape[1:]), shift, dims=1).reshape(x.shape)
 
 
-def ring_grad_inputs(gen, b, s, h, d, dtype):
-    """q, k, v, dO, and the LSE and Δ of a two-block ring over them."""
+def fold_sp(b: int) -> int:
+    """The largest ring of sp 4, 2 or 1 that a folded batch of b rows holds."""
+    return next(sp for sp in (4, 2, 1) if b % sp == 0)
+
+
+def ring_grad_inputs(gen, b, s, h, d, dtype, sp):
+    """q, k, v, dO, and the LSE and Δ of the one-process ring of ``sp``
+    ranks over them (row bi·sp + r is rank r's block): the K/V blocks are
+    independent, so each visiting block carries about 1/sp of a row's
+    softmax mass, as on the ring."""
     q, k, v, dout = qkv(gen, b, s, h, d, dtype, n=4)
     m, num, den = ring_state(gen, b, s, h, d, start=True)
-    for blk in (k, q):
-        m, num, den = flash.ring_block_update(q, blk, v, m, num, den, scale=d ** -0.5)
+    for shift in range(sp):
+        rolled = [roll_fold(x, shift, sp) for x in (k, v)]
+        m, num, den = flash.ring_block_update_reference(q, *rolled, m, num, den,
+                                                        scale=d ** -0.5)
     out = (num / den[..., None]).transpose(1, 2)
     delta = (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, dout, m + torch.log(den), delta
 
 
+def ring_grad_increments(inputs, acc, *, shift: int, sp: int):
+    """What one ring backward step adds to copies of the accumulators
+    ``acc``, by the kernel and by its plain version: (got, want), each a
+    list of the dQ, dK, dV increments."""
+    scale = inputs[0].shape[-1] ** -0.5
+    got, want = [x.clone() for x in acc], [x.clone() for x in acc]
+    flash.ring_block_grad(*inputs, *got, scale=scale, shift=shift, sp=sp)
+    flash.ring_block_grad_reference(*inputs, *want, scale=scale, shift=shift, sp=sp)
+    torch.cuda.synchronize()
+    return ([g - a for g, a in zip(got, acc)], [w - a for w, a in zip(want, acc)])
+
+
 def phase_ring_bwd_kernel_vs_plain() -> float:
     """The ring's backward step against its plain version at RING_CASES'
-    shapes with sk = sq (the ring's blocks are equal), bf16 and f32, into
-    accumulators holding earlier sums, reading the visiting block of
-    step 1 of a two-rank fold where the batch is even, held to the
-    backward kernels' tolerance (the same rounding points, f32 sums in
-    another order): the worst |accumulator − plain| over every case."""
+    shapes with sk = sq (the ring's blocks are equal), bf16 and f32, on
+    the LSE and Δ of a ring of sp 4 (2, 1 where the batch does not
+    divide) at every ring step, into accumulators holding earlier sums:
+    the worst |increment − plain increment| over every case."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     worst = 0.0
     for b, sq, _, h, d in RING_CASES:
+        sp = fold_sp(b)
         for dtype in (torch.bfloat16, torch.float32):
-            inputs = ring_grad_inputs(gen, b, sq, h, d, dtype)
+            inputs = ring_grad_inputs(gen, b, sq, h, d, dtype, sp)
             acc = [torch.randn(b, sq, h, d, generator=gen, device="cuda") for _ in range(3)]
-            shift, sp = (1, 2) if b % 2 == 0 else (0, 1)
-            want = [x.clone() for x in acc]
-            flash.ring_block_grad_reference(*inputs, *want, scale=d ** -0.5, shift=shift,
-                                            sp=sp)
-            flash.ring_block_grad(*inputs, *acc, scale=d ** -0.5, shift=shift, sp=sp)
-            torch.cuda.synchronize()
-            errs = [(g - w).abs() for g, w in zip(acc, want)]
-            ok = all(bool(torch.isfinite(g).all())
-                     and bool((e <= GRAD_ATOL + GRAD_RTOL * w.abs()).all())
-                     for g, w, e in zip(acc, want, errs))
-            emit({"phase": "kernel_vs_plain", "kernel": "flash_ring_bwd",
-                  "shape": [b, sq, sq, h, d], "dtype": str(dtype).split(".")[-1],
-                  "shift_sp": [shift, sp],
-                  "max_abs_err_dq_dk_dv": [e.max().item() for e in errs], "ok": ok})
-            check(ok, f"flash_ring_bwd disagrees with its plain version at "
-                      f"{(b, sq, h, d)} {dtype}")
-            worst = max(worst, *(e.max().item() for e in errs))
+            for shift in range(sp):
+                got, want = ring_grad_increments(inputs, acc, shift=shift, sp=sp)
+                errs = [(g - w).abs() for g, w in zip(got, want)]
+                # the backward kernels' tolerance on what the step added (the
+                # accumulators' earlier sums would loosen rtol), its absolute
+                # part in units of the largest increment, never above
+                # GRAD_ATOL: one P or dS term across a bf16 boundary is 2^-8
+                # of that term; a wrong scale or row is a share of the whole
+                atols = [GRAD_ATOL * min(1.0, w.abs().max().item()) for w in want]
+                ok = all(bool(torch.isfinite(g).all())
+                         and bool((e <= atol + GRAD_RTOL * w.abs()).all())
+                         for g, w, e, atol in zip(got, want, errs, atols))
+                emit({"phase": "kernel_vs_plain", "kernel": "flash_ring_bwd",
+                      "shape": [b, sq, sq, h, d], "dtype": str(dtype).split(".")[-1],
+                      "shift_sp": [shift, sp],
+                      "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
+                      "increment_max_dq_dk_dv": [w.abs().max().item() for w in want],
+                      "increment_rms_dq_dk_dv": [w.square().mean().sqrt().item()
+                                                 for w in want],
+                      "atol_dq_dk_dv": atols, "ok": ok})
+                check(ok, f"flash_ring_bwd disagrees with its plain version at "
+                          f"{(b, sq, h, d)} {dtype} shift {shift} of sp {sp}")
+                worst = max(worst, *(e.max().item() for e in errs))
     return worst
 
 
@@ -883,13 +912,13 @@ def _step_peak_bytes(step, params, tokens, labels) -> int:
     return torch.cuda.max_memory_allocated()
 
 
-def _time_ring_bwd(b, s, h, d) -> dict:
-    """The ring's backward step on the inputs of a two-block ring: kernel,
+def _time_ring_bwd(b, s, h, d, sp) -> dict:
+    """The ring's backward step on the inputs of a ring of ``sp``: kernel,
     plain version and bound. No single PyTorch call takes the ring's LSE
     and Δ and adds into gradient accumulators, so there is no library
     time."""
     gen = torch.Generator(device="cuda").manual_seed(17)
-    inputs = ring_grad_inputs(gen, b, s, h, d, torch.bfloat16)
+    inputs = ring_grad_inputs(gen, b, s, h, d, torch.bfloat16, sp)
     acc = [torch.zeros(b, s, h, d, device="cuda") for _ in range(3)]
     scale = d ** -0.5
     kernel_ms = cuda_ms(lambda: flash.ring_block_grad(*inputs, *acc, scale=scale))
@@ -944,6 +973,52 @@ def _time_sequence_parallel() -> None:
         del params
 
 
+def host_us(fn, *, calls: int = 200, reps: int = 7) -> float:
+    """The host's time per call, in µs: the median over ``reps`` of the
+    wall time per call of ``calls`` back-to-back calls, each window begun
+    on an idle card and ended without waiting for it. Where the card runs
+    a call faster than the host enqueues it, this is the host's cost."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e6 * (time.perf_counter() - started) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _time_host() -> None:
+    """The host's cost per call on the served config's sp-2 path: the ring
+    block update at its fold shape, ring attention beside the dense flash
+    attention on the same global inputs, and the forward at sp 2 beside
+    the single-device one."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cfg, sp, b = SERVED, SERVED_SP, SERVED_BATCH
+    s, h, d = cfg.seq_len, cfg.n_heads, cfg.d_head
+    q, k, v = qkv(gen, b, s, h, d, torch.bfloat16)
+    fold = [x.reshape(b * sp, s // sp, h, d) for x in (q, k, v)]
+    state = ring_state(gen, b * sp, s // sp, h, d, start=False)
+    params = init_params(cfg, 0, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    calls = {"ring_block_update": lambda: flash.ring_block_update(*fold, *state,
+                                                                   scale=d ** -0.5),
+             "ring_attention": lambda: ring.ring_attention(q, k, v, mesh=Mesh(sp=sp)),
+             "flash_attention": lambda: flash.flash_attention(q, k, v),
+             "forward_sp": lambda: forward(params, tokens, cfg=cfg, mesh=Mesh(sp=sp)),
+             "forward_single_device": lambda: forward(params, tokens, cfg=cfg)}
+    with torch.inference_mode():
+        emit({"phase": "times", "host_us_per_call": {name: host_us(fn)
+                                                     for name, fn in calls.items()},
+              "config": "served", "sp": sp, "batch": b,
+              "fold_shape": [b * sp, s // sp, h, d]})
+    del params
+
+
 def phase_times() -> dict:
     timed = {}
     shapes = [(1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32), (BENCH_BATCH, 512, 16, 64)]
@@ -974,12 +1049,14 @@ def phase_times() -> dict:
         ms = cuda_ms(lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
         emit({"phase": "times", "train_step": name, "batch": batch, "ms": ms})
         del params
-    for shape in ((SERVED_BATCH * SERVED_SP, 16, 16, 4, 32), RING_CASES[4]):
+    for shape, sp in (((SERVED_BATCH * SERVED_SP, 16, 16, 4, 32), SERVED_SP),
+                      (RING_CASES[4], BENCH_SP)):
         timed[shape] = {"flash_ring": _time_ring_block(*shape),
-                        "flash_ring_bwd": _time_ring_bwd(*shape[:2], *shape[3:])}
+                        "flash_ring_bwd": _time_ring_bwd(*shape[:2], *shape[3:], sp)}
         for name in ("flash_ring", "flash_ring_bwd"):
             emit({"phase": "times", "kernel": name, **timed[shape][name]})
     _time_sequence_parallel()
+    _time_host()
     return {"flash_fwd": timed[(32, 32, 4, 32)]["flash_fwd"],
             **{name: timed[(BENCH_BATCH, 512, 16, 64)][name] for name in BWD_VARIANTS},
             **timed[RING_CASES[4]]}

@@ -1,90 +1,45 @@
-"""Times the port's sequence-parallel path of one source tree, for an A/B
-of two trees on one card in one call.
+"""Times the sequence-parallel path of another source tree's port with
+chip_smoke.py's own timing functions, for an A/B of two trees on one card
+in one call.
 
-    python3 scripts/torch_sp_ab.py TREE LABEL
+    python3 scripts/torch_sp_ab.py TREE
 
 TREE is the root of a checkout (the repo itself, or an older commit
 unpacked with ``git archive`` into a directory that .gitignore lists).
-Its ``tasksrunner_torch`` is imported and builds its kernels into its own
-build directory. Prints one JSON line: the forward and the train step of
-the served config at sp 2 (batch 8) and of the bench config at sp 4
-(batch 32), each beside the single-device ones, and the ring block
-update at the bench sp-4 shape (and the ring's backward step where the
-tree has one), from CUDA events. Run the trees in turns (A, B, B, A):
-times move between calls and machines. Needs a CUDA card.
+Its ``tasksrunner_torch`` is imported in place of the repo's and builds
+its kernels into its own build directory. Prints chip_smoke's ``times``
+records of the sp forward and train step beside the single-device ones
+and of the host's cost per call on the served sp-2 path, each with a
+``tree`` key. Run the trees in turns (A, B, B, A): times move between
+calls and machines. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
-import statistics
 import sys
 from pathlib import Path
 
 
-def cuda_ms(torch, fn, *, warmup=3, reps=15, inner=10) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
 def main() -> int:
-    tree, label = Path(sys.argv[1]).resolve(), sys.argv[2]
+    tree = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(tree))
-    import torch
+    import tasksrunner_torch  # TREE's package, before chip_smoke imports one
 
-    from tasksrunner_torch import _kernels, flash, model, service
-    from tasksrunner_torch.mesh import Mesh
-    from tasksrunner_torch.model import ModelConfig, forward, init_params
-
-    if not torch.cuda.is_available():
+    if Path(tasksrunner_torch.__file__).resolve().parents[1] != tree:
+        raise SystemExit(f"{tree} holds no tasksrunner_torch")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if not smoke.torch.cuda.is_available():
         print("torch_sp_ab: no CUDA device is available", file=sys.stderr)
         return 2
-    _kernels.build(["flash_fwd", "flash_bwd", "flash_ring"])
-    result = {"label": label, "tree": str(tree), "device": torch.cuda.get_device_name(0)}
-    served = ModelConfig(n_classes=len(service.PRIORITY_LABELS))
-    bench = ModelConfig(vocab=32768, seq_len=512, d_model=1024, n_heads=16, d_ff=4096,
-                        n_layers=8)
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    for name, cfg, batch, sp in (("served", served, 8, 2), ("bench", bench, 32, 4)):
-        params = init_params(cfg, 0, "cuda")
-        tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
-                               device="cuda", dtype=torch.int32)
-        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen, device="cuda")
-        for mesh in (Mesh(sp=sp), None):
-            key = f"{name}_{'sp' if mesh else 'single_device'}"
-            with torch.inference_mode():
-                result[f"{key}_forward_ms"] = cuda_ms(
-                    torch, lambda: forward(params, tokens, cfg=cfg, mesh=mesh), reps=7, inner=5)
-            step = model.make_train_step(cfg, mesh)
-            result[f"{key}_step_ms"] = cuda_ms(
-                torch, lambda: step(params, tokens, labels), warmup=2, reps=5, inner=3)
-        del params
-    b, s, h, d = 4 * 32, 128, 16, 64
-    q, k, v, dout = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
-                     for _ in range(4))
-    m = torch.randn(b, h, s, generator=gen, device="cuda")
-    num = torch.randn(b, h, s, d, generator=gen, device="cuda")
-    den = torch.rand(b, h, s, generator=gen, device="cuda") + 1
-    result["ring_block_update_ms"] = cuda_ms(
-        torch, lambda: flash.ring_block_update(q, k, v, m, num, den, scale=d ** -0.5))
-    if hasattr(flash, "ring_block_grad"):
-        acc = [torch.zeros(b, s, h, d, device="cuda") for _ in range(3)]
-        result["ring_block_grad_ms"] = cuda_ms(
-            torch, lambda: flash.ring_block_grad(q, k, v, dout, m, den, *acc, scale=d ** -0.5))
-    print(json.dumps(result), flush=True)
+    smoke.emit = lambda record: print(json.dumps({"tree": str(tree), **record}), flush=True)
+    smoke._kernels.build(["flash_fwd", "flash_bwd", "flash_ring"])
+    smoke._time_sequence_parallel()
+    smoke._time_host()
     return 0
 
 

@@ -44,8 +44,8 @@ _block_update = flash.ring_block_update_reference
 
 class RingBlockUpdate(torch.autograd.Function):
     """The block update with the kernel forward and the plain update's
-    gradient (ring.py:52-76): the backward recomputes the step with
-    :func:`_block_update` from the saved inputs and returns the
+    gradient (ring.py:52-76): the backward recomputes the step with the
+    plain update from the saved inputs and returns the
     gradients for (q, k_blk, v_blk, m, num, den), None where an input
     needs none (the ring's −inf initial m)."""
 
@@ -61,7 +61,7 @@ class RingBlockUpdate(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(need)
                       for x, need in zip(ctx.saved_tensors, needs)]
-            outs = _block_update(*leaves, scale=ctx.scale)
+            outs = flash.ring_block_update_reference(*leaves, scale=ctx.scale)
             pairs = [(o, g) for o, g in zip(outs, (dm, dnum, dden)) if o.requires_grad]
             grads = iter(torch.autograd.grad(
                 [o for o, _ in pairs], [x for x, need in zip(leaves, needs) if need],
@@ -120,14 +120,14 @@ def _initial_state(q: torch.Tensor):
 
 
 def _ring_per_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, mesh: Mesh,
-                   scale: float, update=_block_update) -> torch.Tensor:
+                   scale: float) -> torch.Tensor:
     """The per-rank body (ring.py:79-109) step by step over q/k/v
-    [b, s_block, h, d], with ``update`` folding each visiting block and
-    autograd differentiating every step: the context block
+    [b, s_block, h, d], with :func:`_block_update` folding each visiting
+    block and autograd differentiating every step: the context block
     [b, s_block, h, d] in f32."""
     m, num, den = _initial_state(q)
     for step in range(mesh.sp):
-        m, num, den = update(q, k, v, m, num, den, scale=scale)
+        m, num, den = _block_update(q, k, v, m, num, den, scale=scale)
         if step < mesh.sp - 1:  # the last rotation would only bring K/V home
             k, v = _rotate(k, v, mesh)
     return (num / den[..., None]).transpose(1, 2)

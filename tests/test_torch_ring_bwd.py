@@ -82,13 +82,13 @@ def _jax_ring_vjp(sp, q, k, v, cot):
     return vjp(cot)
 
 
-def _torch_ring_grads(sp, inputs, cot, **kwargs):
+def _torch_ring_grads(sp, inputs, cot, *, per_step=False):
     leaves = [torch.from_numpy(x).requires_grad_() for x in inputs]
-    if kwargs:
+    if per_step:
         b, s, h, d = leaves[0].shape
         folded = [x.reshape(b * sp, s // sp, h, d) for x in leaves]
-        out = ring._ring_per_step(*folded, mesh=Mesh(sp=sp), scale=d ** -0.5,
-                                  **kwargs).reshape(b, s, h, d)
+        out = ring._ring_per_step(*folded, mesh=Mesh(sp=sp),
+                                  scale=d ** -0.5).reshape(b, s, h, d)
     else:
         out = ring.ring_attention(*leaves, mesh=Mesh(sp=sp))
     return torch.autograd.grad(out, leaves, torch.from_numpy(cot))
@@ -110,7 +110,8 @@ def test_ring_attention_gradients_match_jax_vjp_and_the_per_step_ring(sp, monkey
     cot = rng.standard_normal(SHAPE, np.float32)
     want = _jax_ring_vjp(sp, *inputs, cot)
     got = _torch_ring_grads(sp, inputs, cot)
-    per_step = _torch_ring_grads(sp, inputs, cot, update=_per_step_kernel_update)
+    monkeypatch.setattr(ring, "_block_update", _per_step_kernel_update)
+    per_step = _torch_ring_grads(sp, inputs, cot, per_step=True)
     for g, w, p in zip(got, want, per_step):
         assert g.dtype == torch.float32 and g.shape == SHAPE
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-2, rtol=1e-2)
