@@ -41,15 +41,24 @@ exit, traceback) at the first phase that does not hold:
     params, with the launch counts set to 0 just before and read just
     after: ``n_layers × sp`` ring launches per forward and as many ring
     backward launches per step, no dense one, and no rotation of K/V;
-11. times: kernel, plain version, the PyTorch library call
+11. sharded: the train step sharded dp × sp × tp over spawned ranks, all
+    on this card over gloo (collectives through the host), each rank held
+    against the single-device step from the same params:
+    ``graft_entry.dryrun_multichip(8)`` (2 × 2 × 2 at the dryrun config),
+    then the bench config at batch 32 and lr 1e-3 over (2, 1, 2), which
+    runs B1 and B2, and (2, 2, 2), which runs B4 and the ring's backward;
+    every rank's launch counts are set to 0 just before its step and read
+    just after;
+12. times: kernel, plain version, the PyTorch library call
     (``scaled_dot_product_attention`` and its backward, timed here only
     as a yardstick; none computes the ring's state update or its
     backward step) and the bound, from CUDA events; the forward's time
     per bucket and the train step's at both configs; ring attention
     against dense attention, the sequence-parallel forward and train
     step with the step's peak memory, and the host's cost per call on
-    the served sp-2 path;
-12. profile: the forward's and the train step's device busy share and
+    the served sp-2 path; the kernels at the sharded phase's per-rank
+    shapes;
+13. profile: the forward's and the train step's device busy share and
     largest kernels, from ``torch.profiler``, single-device and at sp 4.
 
 Earlier lines are JSON records; the line before the last holds every
@@ -75,7 +84,9 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from tasksrunner_torch import _kernels, flash, model, ring, service, train  # noqa: E402
+from tasksrunner_torch import (  # noqa: E402
+    _kernels, flash, graft_entry, model, ring, service, train,
+)
 from tasksrunner_torch.mesh import Mesh  # noqa: E402
 from tasksrunner_torch.model import ModelConfig, forward, init_params  # noqa: E402
 
@@ -90,6 +101,11 @@ BENCH = ModelConfig(vocab=32768, seq_len=512, d_model=1024, n_heads=16,
 BENCH_BATCH = 32
 SERVED_BATCH = 8
 BENCH_SP, SERVED_SP = 4, 2
+# the sharded phase's meshes (dp, sp, tp) at the bench config, and the
+# per-rank attention shapes they give B1/B2 and the ring kernels
+SHARDED_MESHES = ((2, 1, 2), (2, 2, 2))
+SHARDED_DENSE = (BENCH_BATCH // 2, 512, 8, 64)
+SHARDED_RING = (BENCH_BATCH // 2, 256, 256, 8, 64)
 
 # the plain version rounds p to bf16 against the final row max, the kernel
 # against the running max of the key tiles seen so far: the two differ by
@@ -130,6 +146,8 @@ RING_CASES = [  # (B, sq, sk, h, d), B the batch times sp, folded
     (BENCH_BATCH * BENCH_SP, 128, 128, 16, 64),  # bench config, sp 4
     (2, 100, 130, 4, 64),  # ragged tiles, sq != sk
     (1, 130, 100, 2, 128),
+    (2, 8, 8, 2, 16),     # the dryrun's 2 × 2 × 2 mesh, one rank
+    SHARDED_RING,         # the bench config on a 2 × 2 × 2 mesh, one rank
 ]
 
 KERNEL_CASES = [  # (b, s, h, d)
@@ -147,6 +165,8 @@ KERNEL_CASES = [  # (b, s, h, d)
     (1, 129, 2, 64),      # one key past the forward's 128-key tile
     (3, 200, 2, 32),      # ragged, two key tiles, d 32
     (3, 50, 2, 16),       # s < 64 at d 16
+    (2, 16, 2, 16),       # the dryrun's tp meshes at dp 2, one rank
+    SHARDED_DENSE,        # the bench config on a 2 × 1 × 2 mesh, one rank
 ]
 
 
@@ -233,15 +253,7 @@ def bwd_variant(variant: str):
         os.environ.pop("TASKSRUNNER_FLASH_BWD_DELTA")
 
 
-def reset_counts() -> None:
-    flash.launches = flash.bwd_launches = flash.bwd_fused_launches = 0
-    flash.ring_launches = flash.ring_bwd_launches = 0
-
-
-def counts() -> dict:
-    return {"flash_fwd": flash.launches, "flash_bwd_delta": flash.bwd_launches,
-            "flash_bwd_fused": flash.bwd_fused_launches,
-            "flash_ring": flash.ring_launches, "flash_ring_bwd": flash.ring_bwd_launches}
+reset_counts, counts = flash.reset_launch_counts, flash.launch_counts
 
 
 @contextlib.contextmanager
@@ -839,6 +851,51 @@ def _run_sequence_parallel(cases, expected: dict) -> None:
         del got
 
 
+def _sharded_launches(cfg: ModelConfig, sp: int) -> dict:
+    """What one rank's step launches: B1 and B2 once per layer at sp 1,
+    B4 and the ring's backward sp times per layer above."""
+    zero = dict.fromkeys(counts(), 0)
+    if sp == 1:
+        return {**zero, "flash_fwd": cfg.n_layers, "flash_bwd_delta": cfg.n_layers}
+    return {**zero, "flash_ring": cfg.n_layers * sp, "flash_ring_bwd": cfg.n_layers * sp}
+
+
+def phase_sharded() -> None:
+    """The dp × sp × tp train step over spawned ranks sharing this card:
+    the dryrun at its default factorization of 8, then the bench config
+    at each of SHARDED_MESHES. The ranks load the kernels built by the
+    build phase; each holds its updated tree against the single-device
+    step (loss 1e-2, leaves 2e-2, updates 5e-2 of the largest: a failure
+    raises) and reports its launch counts around its step."""
+    torch.cuda.empty_cache()
+    started = time.monotonic()
+    runs = [("dryrun", graft_entry.DRYRUN_CONFIG, graft_entry.default_factorization(8), 4)]
+    runs += [("bench", BENCH, mesh, BENCH_BATCH) for mesh in SHARDED_MESHES]
+    for name, cfg, (dp, sp, tp), batch in runs:
+        n = dp * sp * tp
+        timing = f"{n} ranks on one card over gloo, collectives through the host"
+        t0 = time.monotonic()
+        if name == "dryrun":
+            reports = graft_entry.dryrun_multichip(n, devices=["cuda:0"] * n)
+        else:
+            reports = graft_entry.sharded_step(cfg, n, dp=dp, sp=sp, tp=tp,
+                                               devices=["cuda:0"] * n, batch=batch)
+        wall_s = time.monotonic() - t0
+        expected = _sharded_launches(cfg, sp)
+        for report in reports:
+            ok = report["launches"] == expected
+            emit({"phase": "sharded", "config": name, "mesh_dp_sp_tp": [dp, sp, tp],
+                  "batch": batch, **report, "expected_launches": expected,
+                  "timing": timing, "ok": ok})
+            check(ok, f"sharded {name} {(dp, sp, tp)} rank {report['rank']}: launches "
+                      f"{report['launches']} != {expected}")
+        emit({"phase": "sharded", "config": name, "mesh_dp_sp_tp": [dp, sp, tp],
+              "batch": batch, "ranks": n, "wall_s": wall_s,
+              "step_s_max": max(r["step_s"] for r in reports), "timing": timing})
+    emit({"phase": "sharded", "wall_s": time.monotonic() - started,
+          "timing": "ranks on one card over gloo, collectives through the host"})
+
+
 def _time_attention(b, s, h, d) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = qkv(gen, b, s, h, d, torch.bfloat16)
@@ -1019,6 +1076,29 @@ def _time_host() -> None:
     del params
 
 
+def _time_sharded_host() -> None:
+    """The host's cost per call of each kernel's wrapper at the sharded
+    phase's per-rank shapes: where it reaches the CUDA-event time, that
+    time is the host's, not the kernel's."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, s, h, d = SHARDED_DENSE
+    q, k, v, dout = qkv(gen, b, s, h, d, torch.bfloat16, n=4)
+    out, lse = flash.flash_fwd(q, k, v, d ** -0.5)
+    rb, rs, _, rh, rd = SHARDED_RING
+    ring_inputs = ring_grad_inputs(gen, rb, rs, rh, rd, torch.bfloat16, 2)
+    state = ring_state(gen, rb, rs, rh, rd, start=False)
+    acc = [torch.zeros(rb, rs, rh, rd, device="cuda") for _ in range(3)]
+    calls = {"flash_fwd": lambda: flash.flash_fwd(q, k, v, d ** -0.5),
+             "flash_bwd_delta": lambda: flash.flash_bwd(q, k, v, out, lse, dout, d ** -0.5),
+             "flash_ring": lambda: flash.ring_block_update(*ring_inputs[:3], *state,
+                                                          scale=rd ** -0.5),
+             "flash_ring_bwd": lambda: flash.ring_block_grad(*ring_inputs, *acc,
+                                                             scale=rd ** -0.5)}
+    emit({"phase": "times", "path": "sharded, one rank",
+          "shapes": {"dense": SHARDED_DENSE, "ring": SHARDED_RING},
+          "host_us_per_call": {name: host_us(fn) for name, fn in calls.items()}})
+
+
 def phase_times() -> dict:
     timed = {}
     shapes = [(1, 32, 4, 32), (8, 32, 4, 32), (32, 32, 4, 32), (BENCH_BATCH, 512, 16, 64)]
@@ -1050,11 +1130,16 @@ def phase_times() -> dict:
         emit({"phase": "times", "train_step": name, "batch": batch, "ms": ms})
         del params
     for shape, sp in (((SERVED_BATCH * SERVED_SP, 16, 16, 4, 32), SERVED_SP),
-                      (RING_CASES[4], BENCH_SP)):
+                      (RING_CASES[4], BENCH_SP), (SHARDED_RING, 2)):
         timed[shape] = {"flash_ring": _time_ring_block(*shape),
                         "flash_ring_bwd": _time_ring_bwd(*shape[:2], *shape[3:], sp)}
         for name in ("flash_ring", "flash_ring_bwd"):
             emit({"phase": "times", "kernel": name, **timed[shape][name]})
+    sharded = {"flash_fwd": _time_attention(*SHARDED_DENSE),
+               **_time_attention_bwd(*SHARDED_DENSE)}
+    for name, record in sharded.items():
+        emit({"phase": "times", "kernel": name, "path": "sharded, one rank", **record})
+    _time_sharded_host()
     _time_sequence_parallel()
     _time_host()
     return {"flash_fwd": timed[(32, 32, 4, 32)]["flash_fwd"],
@@ -1135,6 +1220,7 @@ def main() -> int:
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()
     launches.update({name: sp_launches[name] for name in ("flash_ring", "flash_ring_bwd")})
+    phase_sharded()
     timed = phase_times()
     phase_profile()
     sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",

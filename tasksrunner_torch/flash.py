@@ -51,6 +51,18 @@ ring_bwd_launches = 0
 _entries: dict = {}
 
 
+def launch_counts() -> dict[str, int]:
+    """Each kernel's launches since the counts were last set to 0."""
+    return {"flash_fwd": launches, "flash_bwd_delta": bwd_launches,
+            "flash_bwd_fused": bwd_fused_launches, "flash_ring": ring_launches,
+            "flash_ring_bwd": ring_bwd_launches}
+
+
+def reset_launch_counts() -> None:
+    global launches, bwd_launches, bwd_fused_launches, ring_launches, ring_bwd_launches
+    launches = bwd_launches = bwd_fused_launches = ring_launches = ring_bwd_launches = 0
+
+
 def use_flash() -> bool:
     """Attention core toggle: the kernels (default) or the plain einsum
     cores (``TASKSRUNNER_FLASH=0``), for the dense core and the ring's

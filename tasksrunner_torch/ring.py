@@ -23,10 +23,10 @@ With ``Mesh(sp=n)`` (one process) the n blocks are folded into the batch,
 [b, s, h, d] → [b·n, s/n, h, d] (a view). Under :class:`RingAttention`
 the kernels read the visiting block of step j in place, from row
 bi·n + (r − j) mod n of the fold, and nothing rotates; the plain ring
-rotates with ``torch.roll``. With ``Mesh(sp=n, group=g)`` a rotation is
-a ``dist.batch_isend_irecv`` between neighbouring processes; in the
-backward, K, V and their gradient accumulators travel the ring together
-and the accumulators end at their home rank.
+rotates with ``torch.roll``. With a mesh over a process group a rotation
+is a ``dist.batch_isend_irecv`` between neighbouring ranks of its
+``sp_group``; in the backward, K, V and their gradient accumulators
+travel the ring together and the accumulators end at their home rank.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from tasksrunner_torch import flash
-from tasksrunner_torch.mesh import Mesh
+from tasksrunner_torch.mesh import Mesh, through_host
 
 #: the plain block update (ring.py:31-49): one function, kept in flash.py
 #: beside the kernel it is the plain version of
@@ -71,17 +71,19 @@ class RingBlockUpdate(torch.autograd.Function):
 
 def _send_recv(group, tensors, shift: int) -> list[torch.Tensor]:
     """Each tensor sent ``shift`` ranks forward in ``group`` and its
-    counterpart received from ``shift`` ranks back."""
+    counterpart received from ``shift`` ranks back, on its device (by way
+    of the host where :func:`~tasksrunner_torch.mesh.through_host` says)."""
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     dst = dist.get_global_rank(group, (rank + shift) % n)
     src = dist.get_global_rank(group, (rank - shift) % n)
-    tensors = [x.contiguous() for x in tensors]
-    received = [torch.empty_like(x) for x in tensors]
-    ops = ([dist.P2POp(dist.isend, x, dst, group) for x in tensors]
+    wire = [x.to("cpu" if through_host(x, group) else x.device).contiguous()
+            for x in tensors]
+    received = [torch.empty_like(x) for x in wire]
+    ops = ([dist.P2POp(dist.isend, x, dst, group) for x in wire]
            + [dist.P2POp(dist.irecv, y, src, group) for y in received])
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return received
+    return [y.to(x.device) for y, x in zip(received, tensors)]
 
 
 class _RotateP2P(torch.autograd.Function):
@@ -104,7 +106,7 @@ def _rotate(k: torch.Tensor, v: torch.Tensor,
     along the n axis of the folded batch [b·n, ...] (rank r ← rank r − 1),
     which only the plain ring does."""
     if mesh.group is not None:
-        return _RotateP2P.apply(mesh.group, k, v)
+        return _RotateP2P.apply(mesh.sp_group, k, v)
 
     def roll(x):
         return torch.roll(x.reshape(-1, mesh.sp, *x.shape[1:]), 1, dims=1).reshape(x.shape)
@@ -181,9 +183,9 @@ class RingAttention(torch.autograd.Function):
             flash.ring_block_grad(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv,
                                   scale=ctx.scale)
             if step < n - 1:
-                k_blk, v_blk, dk, dv = _send_recv(mesh.group, (k_blk, v_blk, dk, dv), 1)
+                k_blk, v_blk, dk, dv = _send_recv(mesh.sp_group, (k_blk, v_blk, dk, dv), 1)
             elif n > 1:  # the accumulators of rank r + 1's block, one step home
-                dk, dv = _send_recv(mesh.group, (dk, dv), 1)
+                dk, dv = _send_recv(mesh.sp_group, (dk, dv), 1)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 

@@ -20,6 +20,13 @@ probabilities. Params go onto the device once, at warm-up, which runs
 off the event loop and runs every bucket once, building and loading the
 attention kernel on the way.
 
+Served on several devices (``model.serving_mesh``), the params are
+copied to each once, at warm-up, and a bucket whose rows divide evenly
+over the devices is split over them (:func:`place_tokens`, service.py:81-90
+of the JAX package); any other bucket runs on the first device. The
+probabilities come back in row order, one device-to-host copy per
+device. With one device, as on one card, nothing of this runs.
+
 The JAX service's ``tasksavedtopic`` subscription, ``GET /scores/{id}``
 and admission-signal registration need the runtime's broker, state store
 and admission controller; they are not ported yet.
@@ -38,7 +45,9 @@ from tasksrunner_torch.batching import BatcherConfig, MicroBatcher
 from tasksrunner_torch.device import resolve_device
 from tasksrunner_torch.envflag import env_flag
 from tasksrunner_torch.errors import SaturatedError
-from tasksrunner_torch.model import ModelConfig, forward, hash_token_ids, init_params
+from tasksrunner_torch.model import (
+    ModelConfig, forward, hash_token_ids, init_params, replicate_params, serving_mesh,
+)
 
 PRIORITY_LABELS = ["backlog", "low", "normal", "high", "urgent"]
 
@@ -47,10 +56,35 @@ PRIORITY_LABELS = ["backlog", "low", "normal", "high", "urgent"]
 WARMUP_RETRY_AFTER = 1
 
 
-def make_app(*, device: str | torch.device | None = None) -> App:
+def place_tokens(tokens: np.ndarray, devices: list) -> list[tuple[int, torch.Tensor]]:
+    """(device index, rows on that device) for each part of a bucket of
+    ``tokens``: its rows split evenly over ``devices`` in order when their
+    number divides the bucket, else the whole bucket on the first."""
+    n = len(devices) if tokens.shape[0] % len(devices) == 0 else 1
+    return [(i, torch.from_numpy(part).to(devices[i]))
+            for i, part in enumerate(np.split(tokens, n))]
+
+
+def batch_probs(replicas: list[dict], devices: list, tokens: np.ndarray, *,
+                cfg: ModelConfig) -> np.ndarray:
+    """The class probabilities of a bucket of ``tokens``, computed on the
+    devices :func:`place_tokens` gives each part (``replicas[i]`` being the
+    params on ``devices[i]``), in row order: every part's forward is
+    queued before the first device-to-host copy, one copy per part."""
+    with torch.inference_mode():
+        probs = [torch.softmax(forward(replicas[i], part, cfg=cfg), dim=-1)
+                 for i, part in place_tokens(tokens, devices)]
+        return np.concatenate([p.cpu().numpy() for p in probs])
+
+
+def make_app(*, device: str | torch.device | None = None,
+             devices: list | None = None) -> App:
     """The scorer as an :class:`App` with id ``priority-scorer``, its
-    params drawn from seed 0 on ``device`` (``cuda:0`` by default)."""
-    dev = resolve_device(device)
+    params drawn from seed 0. It serves on ``devices`` when they are given
+    (a bucket's rows split over them), else on ``device``, else on every
+    visible card (on one card, ``cuda:0``)."""
+    mesh = serving_mesh(devices) if devices is not None or device is None else None
+    devs = list(mesh) if mesh else [resolve_device(devices[0] if devices else device)]
     cfg = ModelConfig(n_classes=len(PRIORITY_LABELS))
     app = App("priority-scorer")
     loaded: dict[str, Any] = {}
@@ -60,14 +94,12 @@ def make_app(*, device: str | torch.device | None = None) -> App:
     if not env_flag("TASKSRUNNER_ML_BATCHING"):
         bcfg = bcfg.serial()
 
-    def _probs(params: dict, tokens: np.ndarray) -> np.ndarray:
-        # inference_mode is thread-local: it is entered here, in the
+    def _probs(replicas: list[dict], tokens: np.ndarray) -> np.ndarray:
+        # inference_mode is thread-local: batch_probs enters it in the
         # worker thread that runs the batch
-        with torch.inference_mode():
-            logits = forward(params, torch.from_numpy(tokens).to(dev), cfg=cfg)
-            probs = torch.softmax(logits, dim=-1)
-            shapes_run.add(tokens.shape)
-            return probs.cpu().numpy()  # the batch's one device-to-host copy
+        probs = batch_probs(replicas, devs, tokens, cfg=cfg)
+        shapes_run.add(tokens.shape)
+        return probs
 
     def _run_batch(rows: list[np.ndarray], bucket: int) -> list[dict]:
         tokens = np.zeros((bucket, cfg.seq_len), np.int32)
@@ -89,8 +121,8 @@ def make_app(*, device: str | torch.device | None = None) -> App:
 
     @app.on_startup
     async def load_model() -> None:
-        def build() -> dict:
-            params = init_params(cfg, 0, dev)
+        def build() -> list[dict]:
+            params = replicate_params(init_params(cfg, 0, devs[0]), devs)
             # every bucket once, so no request meets a shape the forward
             # has not run (and the kernel is built before the first one)
             for bucket in bcfg.buckets:

@@ -8,7 +8,7 @@ they run on a machine that has only PyTorch:
 import pytest
 import torch
 
-from tasksrunner_torch import flash, model
+from tasksrunner_torch import flash, graft_entry, model
 from tasksrunner_torch.mesh import Mesh
 from tasksrunner_torch.model import ModelConfig, forward, init_params
 
@@ -371,3 +371,15 @@ def test_sp_train_step_launches_only_the_ring_kernels(card, monkeypatch):
     assert torch.isfinite(loss)
     n = cfg.n_layers * 4
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, n, n)
+
+
+def test_sharded_dryrun_with_every_rank_on_the_card(card):
+    """graft_entry.dryrun_multichip(4) with its four ranks on cuda:0 over
+    gloo (1 × 2 × 2 at the dryrun config, collectives through the host):
+    every rank holds the single-device step, and its step launches B4 and
+    the ring's backward n_layers × sp times each and no dense kernel."""
+    reports = graft_entry.dryrun_multichip(4, devices=[card] * 4)
+    n = graft_entry.DRYRUN_CONFIG.n_layers * 2
+    assert [r["launches"] for r in reports] == [
+        {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_fused": 0,
+         "flash_ring": n, "flash_ring_bwd": n}] * 4

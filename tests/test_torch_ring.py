@@ -168,7 +168,8 @@ def test_a_mesh_that_does_not_fit_is_refused():
         model.make_train_step(cfg, Mesh(sp=3))
     with pytest.raises(ValueError, match="at least 1"):
         Mesh(sp=0)
-    assert Mesh(sp=4).axis_names == ("sp",) and Mesh(sp=4).shape == {"sp": 4}
+    assert Mesh(sp=4).axis_names == ("dp", "sp", "tp")
+    assert Mesh(sp=4).shape == {"dp": 1, "sp": 4, "tp": 1}
 
 
 @pytest.mark.parametrize("bad", ["d_head", "heads", "state_dtype", "q_dtype"])
