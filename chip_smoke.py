@@ -687,10 +687,14 @@ def phase_serve() -> int:
     check(counts()["flash_bwd_delta"] == counts()["flash_bwd_fused"]
           == counts()["flash_ring"] == counts()["flash_ring_bwd"] == 0,
           "the served path launched a backward or ring kernel")
-    batches = sum(result["stats"]["batches"].values())
-    warmups = len(result["stats"]["buckets"])
-    expected = SERVED.n_layers * (warmups + batches)
-    emit({"phase": "serve", **result, "flash_launches": launches,
+    # make_app serves on every visible card: a bucket that divides over
+    # them runs one forward per card, at warm-up and at each batch
+    cards = torch.cuda.device_count()
+    batches = result["stats"]["batches"]
+    expected = SERVED.n_layers * sum((cards if bucket % cards == 0 else 1)
+                                     * (1 + batches.get(str(bucket), 0))
+                                     for bucket in result["stats"]["buckets"])
+    emit({"phase": "serve", **result, "cards": cards, "flash_launches": launches,
           "expected_launches": expected})
     check(launches > 0, "the served path launched no flash kernel")
     check(launches == expected, f"flash launches {launches} != {expected}")
@@ -860,26 +864,33 @@ def _sharded_launches(cfg: ModelConfig, sp: int) -> dict:
     return {**zero, "flash_ring": cfg.n_layers * sp, "flash_ring_bwd": cfg.n_layers * sp}
 
 
-def phase_sharded() -> None:
-    """The dp × sp × tp train step over spawned ranks sharing this card:
-    the dryrun at its default factorization of 8, then the bench config
-    at each of SHARDED_MESHES. The ranks load the kernels built by the
-    build phase; each holds its updated tree against the single-device
-    step (loss 1e-2, leaves 2e-2, updates 5e-2 of the largest: a failure
-    raises) and reports its launch counts around its step."""
+def phase_sharded(cards: int = 1, meshes=SHARDED_MESHES, dryrun_ranks: int = 8) -> None:
+    """The dp × sp × tp train step over spawned ranks on ``cards`` cards,
+    rank r on cuda:(r mod cards): the dryrun at its default factorization
+    of ``dryrun_ranks``, then the bench config at each of ``meshes``. With
+    a card for each rank the ranks use NCCL, else gloo, whose collectives
+    go through the host. The ranks load the kernels built by
+    the build phase; each holds its updated tree against the
+    single-device step (loss 1e-2, leaves 2e-2, updates 5e-2 of the
+    largest: a failure raises) and reports its launch counts around its
+    step."""
     torch.cuda.empty_cache()
     started = time.monotonic()
-    runs = [("dryrun", graft_entry.DRYRUN_CONFIG, graft_entry.default_factorization(8), 4)]
-    runs += [("bench", BENCH, mesh, BENCH_BATCH) for mesh in SHARDED_MESHES]
+    runs = [("dryrun", graft_entry.DRYRUN_CONFIG,
+             graft_entry.default_factorization(dryrun_ranks), 4)]
+    runs += [("bench", BENCH, mesh, BENCH_BATCH) for mesh in meshes]
     for name, cfg, (dp, sp, tp), batch in runs:
         n = dp * sp * tp
-        timing = f"{n} ranks on one card over gloo, collectives through the host"
+        devices = [f"cuda:{r % cards}" for r in range(n)]
+        timing = (f"{n} ranks on {n} cards over NCCL" if cards >= n else
+                  f"{n} ranks on {'one card' if cards == 1 else f'{cards} cards'} "
+                  "over gloo, collectives through the host")
         t0 = time.monotonic()
         if name == "dryrun":
-            reports = graft_entry.dryrun_multichip(n, devices=["cuda:0"] * n)
+            reports = graft_entry.dryrun_multichip(n, devices=devices)
         else:
             reports = graft_entry.sharded_step(cfg, n, dp=dp, sp=sp, tp=tp,
-                                               devices=["cuda:0"] * n, batch=batch)
+                                               devices=devices, batch=batch)
         wall_s = time.monotonic() - t0
         expected = _sharded_launches(cfg, sp)
         for report in reports:
@@ -892,8 +903,7 @@ def phase_sharded() -> None:
         emit({"phase": "sharded", "config": name, "mesh_dp_sp_tp": [dp, sp, tp],
               "batch": batch, "ranks": n, "wall_s": wall_s,
               "step_s_max": max(r["step_s"] for r in reports), "timing": timing})
-    emit({"phase": "sharded", "wall_s": time.monotonic() - started,
-          "timing": "ranks on one card over gloo, collectives through the host"})
+    emit({"phase": "sharded", "cards": cards, "wall_s": time.monotonic() - started})
 
 
 def _time_attention(b, s, h, d) -> dict:
@@ -1165,9 +1175,10 @@ def _profile(fn, n: int) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - started
     # device-side events only: an aten op also carries the time of the
-    # kernels it launched
+    # kernels it launched, and so does NCCL's ``nccl:*`` range
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("nccl:")]
     busy_s = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"calls": n, "wall_ms_per_call": 1e3 * wall_s / n,

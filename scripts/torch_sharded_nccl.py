@@ -1,40 +1,58 @@
-"""The sharded train step with one rank per card, over NCCL.
+"""The sharded train step and the served split with one card per rank.
 
     python3 scripts/torch_sharded_nccl.py
 
-Needs four cards. Runs ``graft_entry.sharded_step`` with its ranks on
-cuda:0 … cuda:3 (four distinct cards, so the ranks use NCCL and every
-collective takes the tensors where they lie): the dryrun config at its
-default factorization of 4 (1 × 2 × 2), then the bench config at batch
-32 and lr 1e-3 over (dp, sp, tp) = (2, 1, 2), which runs B1 and B2, and
-(1, 2, 2), which runs B4 and the ring's backward. Each rank is held
-against the single-device step on cuda:0 (loss 1e-2, leaves 2e-2,
-updates 5e-2 of the largest); a failure raises. Prints the cards' names
-and power limits, one JSON line per rank (loss, largest leaf error,
-launch counts and wall time of one warm step) and one per mesh.
+Needs four cards. Runs ``chip_smoke.py``'s phases on all four:
+
+* build, then serve: ``service.make_app()`` serves on every visible card,
+  so each bucket that divides by four runs its rows split over them
+  (warm-up included, off the event loop); then every bucket's
+  probabilities split over the four cards against those of one card;
+* sharded: the dryrun at its default factorization of 4 (1 × 2 × 2),
+  then the bench config at batch 32 and lr 1e-3 over (dp, sp, tp) =
+  (2, 1, 2), which runs B1 and B2, and (1, 2, 2), which runs B4 and the
+  ring's backward, one rank per card over NCCL, each rank held against
+  the single-device step on cuda:0.
+
+A phase that does not hold raises. Prints the cards' names and power
+limits and the phases' JSON lines.
 """
 
 from __future__ import annotations
 
-import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from tasksrunner_torch import _kernels  # noqa: E402
-from tasksrunner_torch.graft_entry import (  # noqa: E402
-    DRYRUN_CONFIG, default_factorization, sharded_step,
-)
-from tasksrunner_torch.model import ModelConfig  # noqa: E402
+import chip_smoke  # noqa: E402
+from chip_smoke import LOGITS_TOL, SERVED, check, emit  # noqa: E402
+from tasksrunner_torch import service  # noqa: E402
+from tasksrunner_torch.batching import DEFAULT_BUCKETS  # noqa: E402
+from tasksrunner_torch.model import init_params, replicate_params, serving_mesh  # noqa: E402
 
 N = 4
-BENCH = ModelConfig(vocab=32768, seq_len=512, d_model=1024, n_heads=16, d_ff=4096,
-                    n_layers=8)
+
+
+def served_split() -> None:
+    """Each bucket's probabilities over the four cards against one card's
+    from the same params, within the logits' tolerance (a probability
+    moves no more than the logits do)."""
+    devices = list(serving_mesh())
+    replicas = replicate_params(init_params(SERVED, 0, devices[0]), devices)
+    rng = np.random.default_rng(0)
+    for bucket in DEFAULT_BUCKETS:
+        tokens = rng.integers(0, SERVED.vocab, (bucket, SERVED.seq_len), dtype=np.int32)
+        split = service.batch_probs(replicas, devices, tokens, cfg=SERVED)
+        one = service.batch_probs(replicas[:1], devices[:1], tokens, cfg=SERVED)
+        err = float(np.abs(split - one).max())
+        parts = len(service.place_tokens(tokens, devices))
+        emit({"phase": "served split", "bucket": bucket, "parts": parts,
+              "max_abs_err_probs": err, "tolerance": LOGITS_TOL})
+        check(err <= LOGITS_TOL, f"bucket {bucket} split over {parts} cards is off by {err}")
 
 
 def main() -> int:
@@ -42,24 +60,11 @@ def main() -> int:
         print(f"torch_sharded_nccl: needs {N} cards, has {torch.cuda.device_count()}",
               file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip(), flush=True)
-    _kernels.build(["flash_fwd", "flash_bwd", "flash_ring"])  # before any rank starts
-    devices = [f"cuda:{i}" for i in range(N)]
-    runs = [("dryrun", DRYRUN_CONFIG, default_factorization(N), None),
-            ("bench", BENCH, (2, 1, 2), 32), ("bench", BENCH, (1, 2, 2), 32)]
-    timing = f"{N} ranks on {N} cards over NCCL"
-    for name, cfg, (dp, sp, tp), batch in runs:
-        started = time.monotonic()
-        reports = sharded_step(cfg, N, dp=dp, sp=sp, tp=tp, devices=devices, batch=batch)
-        wall_s = time.monotonic() - started
-        for report in reports:
-            print(json.dumps({"config": name, "mesh_dp_sp_tp": [dp, sp, tp], **report,
-                              "timing": timing}), flush=True)
-        print(json.dumps({"config": name, "mesh_dp_sp_tp": [dp, sp, tp], "wall_s": wall_s,
-                          "step_s_max": max(r["step_s"] for r in reports),
-                          "timing": timing}), flush=True)
+    chip_smoke.phase_device()
+    chip_smoke.phase_build()  # before any rank starts
+    chip_smoke.phase_serve()
+    served_split()
+    chip_smoke.phase_sharded(cards=N, meshes=((2, 1, 2), (1, 2, 2)), dryrun_ranks=N)
     return 0
 
 

@@ -198,6 +198,15 @@ def _kernel(name: str = "flash_fwd"):
     return fn
 
 
+def _call(name: str, device: torch.device, *args) -> int:
+    """The C entry ``tr_<name>`` called with ``args`` and the current
+    stream of ``device``, with ``device`` made the current one: the entry
+    launches on the current device and reads its SM count there, and on a
+    host with several cards that need not be the tensors' card."""
+    with torch.cuda.device(device):
+        return _kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def _strides(*tensors: torch.Tensor):
     return (ctypes.c_int64 * (3 * len(tensors)))(
         *(x.stride(i) for x in tensors for i in range(3)))
@@ -222,11 +231,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     staged = (torch.empty((3, b, s, h, d), dtype=torch.bfloat16, device=q.device)
               if q.dtype == torch.float32 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), None if staged is None else staged.data_ptr(),
-                    b, s, h, d, int(q.dtype == torch.bfloat16),
-                    _strides(q, k, v, out), float(scale), stream)
+    err = _call("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(),
+                None if staged is None else staged.data_ptr(),
+                b, s, h, d, int(q.dtype == torch.bfloat16),
+                _strides(q, k, v, out), float(scale))
     if err:
         raise _launch_error("flash_fwd", err)
     launches += 1
@@ -275,14 +284,14 @@ def _launch_bwd(q, k, v, out, lse, dout, scale):
              if precompute or f32 else None)
     staged = (torch.empty((4, b, s, h, d), dtype=torch.bfloat16, device=q.device)
               if f32 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel("flash_bwd")(
+    err = _call(
+        "flash_bwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), None if delta is None else delta.data_ptr(), dq_accum.data_ptr(),
         None if f32 else dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if staged is None else staged.data_ptr(),
         b, s, h, d, int(not f32), int(not precompute),
-        _strides(q, k, v, out, dout, dk, dv), float(scale), stream)
+        _strides(q, k, v, out, dout, dk, dv), float(scale))
     if err:
         raise _launch_error("flash_bwd", err)
     if precompute:
@@ -418,13 +427,13 @@ def _launch_ring(q, k_blk, v_blk, m, num, den, scale, shift, sp):
     num_out = torch.empty_like(num)
     staged = (torch.empty((b, sq + 2 * sk, h, d), dtype=torch.bfloat16, device=q.device)
               if q.dtype == torch.float32 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel("flash_ring")(
+    err = _call(
+        "flash_ring", q.device,
         q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(), num.data_ptr(),
         den.data_ptr(), m_out.data_ptr(), num_out.data_ptr(), den_out.data_ptr(),
         None if staged is None else staged.data_ptr(),
         b, sq, sk, h, d, int(q.dtype == torch.bfloat16), shift, sp,
-        _strides(q, k_blk, v_blk), float(scale), stream)
+        _strides(q, k_blk, v_blk), float(scale))
     if err:
         raise _launch_error("flash_ring", err)
     ring_launches += 1
@@ -495,11 +504,11 @@ def _launch_ring_bwd(q, k_blk, v_blk, dout, lse, delta, dq, dk, dv, scale, shift
     if any(x.data_ptr() % 16 for x in (lse, delta, dq, dk, dv)):
         raise ValueError("the ring's backward kernel needs 16-byte aligned f32 buffers")
     b, s, h, d = q.shape
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel("flash_ring_bwd")(
+    err = _call(
+        "flash_ring_bwd", q.device,
         q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d,
-        _strides(q, k_blk, v_blk, dout), float(scale), shift, sp, stream)
+        _strides(q, k_blk, v_blk, dout), float(scale), shift, sp)
     if err:
         raise _launch_error("flash_ring_bwd", err)
     ring_bwd_launches += 1

@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from tasksrunner_torch import flash
 from tasksrunner_torch.device import resolve_device
-from tasksrunner_torch.mesh import Mesh, through_host
+from tasksrunner_torch.mesh import Mesh
 from tasksrunner_torch.model import (
     ModelConfig,
     _leaves,
@@ -130,9 +130,9 @@ def _check_same_on_every_rank(tree: dict, mesh: Mesh) -> None:
     """AssertionError unless every rank of ``mesh`` holds ``tree`` bit for
     bit: each leaf is compared with group rank 0's."""
     flat = torch.cat([x.reshape(-1) for x in _leaves(tree)])
-    wire = flat.to("cpu" if through_host(flat, mesh.group) else flat.device, copy=True)
+    wire = flat.clone()
     dist.broadcast(wire, group_src=0, group=mesh.group)
-    if not torch.equal(wire.to(flat.device), flat):
+    if not torch.equal(wire, flat):
         raise AssertionError(f"rank {mesh.coords} of the mesh holds another updated "
                              "tree than rank (0, 0, 0): a replicated leaf or a shard "
                              "was updated differently")

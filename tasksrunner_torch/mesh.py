@@ -37,12 +37,15 @@ in :mod:`tasksrunner_torch.model` follows at every use:
   above leave summed and replicated over tp;
 * after that, the train step averages gradients over dp only.
 
-Each collective runs where its tensors lie, except over gloo, which the
-port uses for CPU ranks and for several ranks sharing one card: there a
-CUDA tensor goes through an explicit copy to the host and back, chosen
-by the group's backend (:func:`through_host`). NCCL, which the port picks
-only when every rank has a card of its own, takes them in place. Sums
-run in f32 and come back in the input's dtype.
+Each collective takes its tensors where they lie. Gloo, which the port
+uses for CPU ranks and for several ranks sharing one card, copies a CUDA
+tensor to the host itself in ``all_reduce``, ``broadcast`` and
+``all_gather``; its ``batch_isend_irecv`` refuses one (PyTorch 2.11 on an
+H100). So the ring's exchange (``ring._send_recv``), the one point-to-point
+operation, goes through an explicit copy to the host and back over gloo,
+chosen by the group's backend (:func:`through_host`). NCCL, which the
+port picks only when every rank has a card of its own, takes every
+tensor in place. Sums run in f32 and come back in the input's dtype.
 """
 
 from __future__ import annotations
@@ -57,27 +60,26 @@ AXES = ("dp", "sp", "tp")
 
 
 def through_host(x: torch.Tensor, group: dist.ProcessGroup) -> bool:
-    """Whether a collective over ``group`` takes ``x`` by a copy to the
-    host: a CUDA tensor on a gloo group."""
+    """Whether a point-to-point exchange over ``group`` takes ``x`` by a
+    copy to the host: a CUDA tensor on a gloo group."""
     return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
 
 
 def all_reduce(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     """The sum of ``x`` over ``group``, summed in f32, as a new tensor in
     ``x``'s dtype on its device."""
-    wire = x.detach().to("cpu" if through_host(x, group) else x.device,
-                         torch.float32, copy=True)
+    wire = x.detach().to(torch.float32, copy=True)
     dist.all_reduce(wire, group=group)
-    return wire.to(x.device, x.dtype)
+    return wire.to(x.dtype)
 
 
 def all_gather(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
     """Every rank's ``x`` of ``group`` concatenated along ``dim`` in group
     rank order, on ``x``'s device."""
-    wire = x.detach().to("cpu" if through_host(x, group) else x.device).contiguous()
+    wire = x.detach().contiguous()
     parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, wire, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    return torch.cat(parts, dim=dim)
 
 
 class _Reduce(torch.autograd.Function):

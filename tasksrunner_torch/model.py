@@ -224,12 +224,43 @@ def _local_batch(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return x[mesh.coord("dp") * rows:(mesh.coord("dp") + 1) * rows]
 
 
+class _ProductF32(torch.autograd.Function):
+    """bf16 a [m, k] @ bf16 b [k, n] accumulated and returned in f32 by the
+    card's tensor cores (``torch.mm(out_dtype=)``, which has no autograd
+    formula). Its gradients are the ones autograd gives the f32 product of
+    bf16-rounded inputs: for a gradient held in bf16, as it is here, bf16
+    products accumulated in f32 and rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad = grad.to(torch.bfloat16)
+        return (grad @ b.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ grad if ctx.needs_input_grad[1] else None)
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., k] @ b [k, n] of bf16-rounded inputs, accumulated and
+    returned in f32. With bf16 activations on the card the gradient
+    reaching it is bf16, and this is :class:`_ProductF32`; otherwise it
+    is the product in f32."""
+    if a.is_cuda and act_dtype() == torch.bfloat16:
+        rows = _ProductF32.apply(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
+                                 b.to(torch.bfloat16))
+        return rows.reshape(*a.shape[:-1], b.shape[-1])
+    return _bf16_f32(a) @ _bf16_f32(b)
+
+
 def _row_parallel(a: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """a @ w for w split on its input dim over tp: each rank's product of
-    bf16-rounded inputs in f32, summed over tp in f32, then stored in the
-    activation dtype, so it is rounded once, as the single-device product
-    is."""
-    return mesh.reduce(_bf16_f32(a) @ _bf16_f32(w), "tp").to(act_dtype())
+    """a @ w for w split on its input dim over tp: each rank's product in
+    f32, summed over tp in f32, then stored in the activation dtype, so it
+    is rounded once, as the single-device product is."""
+    return mesh.reduce(_product_f32(a, w), "tp").to(act_dtype())
 
 
 def _sharded_attention(x: torch.Tensor, layer: dict, cfg: ModelConfig,

@@ -77,14 +77,13 @@ def batch_probs(replicas: list[dict], devices: list, tokens: np.ndarray, *,
         return np.concatenate([p.cpu().numpy() for p in probs])
 
 
-def make_app(*, device: str | torch.device | None = None,
-             devices: list | None = None) -> App:
+def make_app(*, device: str | torch.device | None = None) -> App:
     """The scorer as an :class:`App` with id ``priority-scorer``, its
-    params drawn from seed 0. It serves on ``devices`` when they are given
-    (a bucket's rows split over them), else on ``device``, else on every
-    visible card (on one card, ``cuda:0``)."""
-    mesh = serving_mesh(devices) if devices is not None or device is None else None
-    devs = list(mesh) if mesh else [resolve_device(devices[0] if devices else device)]
+    params drawn from seed 0. It serves on ``device`` when one is given,
+    else on every visible card (:func:`~tasksrunner_torch.model.serving_mesh`;
+    on one card, ``cuda:0``)."""
+    mesh = serving_mesh() if device is None else None
+    devs = list(mesh) if mesh else [resolve_device(device)]
     cfg = ModelConfig(n_classes=len(PRIORITY_LABELS))
     app = App("priority-scorer")
     loaded: dict[str, Any] = {}

@@ -197,6 +197,30 @@ def test_f32_activation_matmul_keeps_the_f32_accumulator(card, monkeypatch):
     assert (stored_bf16.float().cpu() - want).abs().max() / scale > 1e-4
 
 
+def test_row_parallel_product_keeps_the_f32_accumulator_on_tensor_cores(card):
+    """model._product_f32, the wo and w2 partials of the tp-sharded model,
+    on the card (bf16 tensor-core products returned in f32) against the
+    CPU's f32 product of the same bf16 inputs: the output to 1e-5 of its
+    largest value (f32 sums in another order), and the gradients, both
+    rounded to bf16, to one bf16 step of the largest (2^-7)."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    a = torch.randn(2, 64, 512, generator=gen).to(torch.bfloat16)
+    w = torch.randn(512, 256, generator=gen) / 512 ** 0.5
+    grad = torch.randn(2, 64, 256, generator=gen).to(torch.bfloat16).float()
+
+    def run(device):
+        a_, w_ = a.to(device).requires_grad_(), w.to(device).requires_grad_()
+        out = model._product_f32(a_, w_)
+        out.backward(grad.to(device))
+        return [x.cpu() for x in (out, a_.grad, w_.grad)]
+
+    got, want = run(card), run("cpu")
+    assert [x.dtype for x in got] == [x.dtype for x in want]
+    assert got[0].dtype == torch.float32
+    for g, w_, tol in zip(got, want, (1e-5, 2 ** -7, 2 ** -7)):
+        assert (g.float() - w_.float()).abs().max() <= tol * w_.float().abs().max()
+
+
 def _ring_state(gen, card, b, sq, h, d, start: bool):
     """The ring's state at its start (-inf, 0, 0), or after one plain
     step over another random block."""
