@@ -30,6 +30,16 @@ exit, traceback) at the first phase that does not hold:
 8. serve: the scorer's HTTP server on 127.0.0.1 answering concurrent
    ``POST /score`` requests, with the launch counts set to 0 just before
    and read just after;
+8a. runtime: the scorer hosted on the port's in-process runtime
+   (``hosting.InProcHost``, a ``scores`` store and a ``taskspubsub``
+   broker) beside a publisher app: events published during warm-up are
+   deferred with 503 + Retry-After and stored; a burst of saved-task
+   events and ``POST /score`` calls through ``invoke_method`` stores
+   every event with the synchronous lane's score; with
+   ``TASKSRUNNER_ADMISSION=1`` and a small token budget a flood is shed
+   at the front door with 429 + Retry-After and every event is still
+   stored; the launch counts set to 0 just before each host and read
+   just after;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -87,6 +97,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tasksrunner_torch import (  # noqa: E402
     _kernels, flash, graft_entry, model, ring, service, train,
 )
+from tasksrunner_torch.app import App  # noqa: E402
+from tasksrunner_torch.client import http_request  # noqa: E402
+from tasksrunner_torch.hosting import InProcHost  # noqa: E402
+from tasksrunner_torch.pubsub import InMemoryBroker  # noqa: E402
+from tasksrunner_torch.state import InMemoryStateStore  # noqa: E402
 from tasksrunner_torch.mesh import Mesh  # noqa: E402
 from tasksrunner_torch.model import ModelConfig, forward, init_params  # noqa: E402
 
@@ -605,20 +620,9 @@ def phase_forward() -> None:
 
 
 async def _http(port: int, method: str, path: str, body: bytes = b""):
-    """One HTTP/1.1 request over asyncio streams: (status, headers, body)."""
-    reader, writer = await asyncio.open_connection("127.0.0.1", port)
-    try:
-        writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
-                     f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
-                     .encode() + body)
-        await writer.drain()
-        raw = await asyncio.wait_for(reader.read(), 120)
-    finally:
-        writer.close()
-    head, _, payload = raw.partition(b"\r\n\r\n")
-    lines = head.decode("latin-1").split("\r\n")
-    headers = dict(line.split(": ", 1) for line in lines[1:])
-    return int(lines[0].split(" ")[1]), headers, payload
+    """One HTTP/1.1 request to 127.0.0.1: (status, headers, body)."""
+    return await asyncio.wait_for(
+        http_request("127.0.0.1", port, method, path, body=body), 120)
 
 
 async def _serve(n_requests: int) -> dict:
@@ -632,7 +636,7 @@ async def _serve(n_requests: int) -> dict:
             status, headers, body = await _http(port, "POST", "/score", first)
             if status == 200:
                 break
-            check(status == 503 and headers.get("Retry-After") == "1",
+            check(status == 503 and headers.get("retry-after") == "1",
                   f"/score during warm-up answered {status} {body!r}")
             not_ready += 1
             check(time.monotonic() < deadline, "warm-up did not finish")
@@ -680,6 +684,16 @@ async def _serve(n_requests: int) -> dict:
         await app.stop()
 
 
+def expected_serve_launches(stats: dict, cards: int) -> int:
+    """B1's launches for a scorer's life, from its ``/ml/stats``: one per
+    layer for each bucket's warm-up and each batch run, times the cards a
+    bucket that divides over them is split over (make_app serves on every
+    visible card)."""
+    return SERVED.n_layers * sum((cards if bucket % cards == 0 else 1)
+                                 * (1 + stats["batches"].get(str(bucket), 0))
+                                 for bucket in stats["buckets"])
+
+
 def phase_serve() -> int:
     reset_counts()
     result = asyncio.run(_serve(n_requests=32))
@@ -690,15 +704,222 @@ def phase_serve() -> int:
     # make_app serves on every visible card: a bucket that divides over
     # them runs one forward per card, at warm-up and at each batch
     cards = torch.cuda.device_count()
-    batches = result["stats"]["batches"]
-    expected = SERVED.n_layers * sum((cards if bucket % cards == 0 else 1)
-                                     * (1 + batches.get(str(bucket), 0))
-                                     for bucket in result["stats"]["buckets"])
+    expected = expected_serve_launches(result["stats"], cards)
     emit({"phase": "serve", **result, "cards": cards, "flash_launches": launches,
           "expected_launches": expected})
     check(launches > 0, "the served path launched no flash kernel")
     check(launches == expected, f"flash launches {launches} != {expected}")
     return launches
+
+
+# the runtime phase: how many events and /score calls, and the token
+# budget that makes the admission flood saturate the batcher (each flood
+# task is 4 words, so 4 tokens: FLOOD_CLIENTS of them hold twice the budget)
+RUNTIME_EVENTS, RUNTIME_REQUESTS = 64, 32
+WARMUP_EVENTS = 8
+FLOOD_CLIENTS, FLOOD_MAX_TOKENS = 32, 64
+RUNTIME_CONFIDENCE_TOL = 1e-3
+PUBSUB, TOPIC = "taskspubsub", "tasksavedtopic"
+
+
+class TimedStore(InMemoryStateStore):
+    """The ``scores`` store, noting when each key was first saved."""
+
+    def __init__(self, name: str) -> None:
+        super().__init__(name)
+        self.stored_at: dict[str, float] = {}
+
+    async def set(self, key, value) -> None:
+        await super().set(key, value)
+        self.stored_at.setdefault(key, time.monotonic())
+
+
+async def _until(predicate, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not predicate():
+        check(time.monotonic() < deadline, what)
+        await asyncio.sleep(0.005)
+
+
+def _saved_task(prefix: str, i: int) -> dict:
+    return {"taskId": f"{prefix}-{i}", "taskName": f"rotate the keys of service {i}",
+            "taskCreatedBy": "ops", "taskAssignedTo": f"user{i % 5}"}
+
+
+class _Runtime:
+    """The scorer and a publisher app in an InProcHost with a timed
+    ``scores`` store and a broker that dead-letters at the first nack
+    that uses up an attempt: a stored event proves its nacks used none."""
+
+    def __init__(self) -> None:
+        self.store = TimedStore("scores")
+        self.broker = InMemoryBroker(PUBSUB, max_attempts=1)
+        self.host = InProcHost(state_stores={"scores": self.store},
+                               brokers={PUBSUB: self.broker})
+        self.scorer = service.make_app()
+        self.host.add_app(self.scorer)
+        self.host.add_app(App("some-api"))
+        self.client = None
+        self.published: dict[str, float] = {}
+
+    async def start(self) -> None:
+        await self.host.start()
+        self.client = self.host.client("some-api")
+
+    async def publish(self, task: dict) -> None:
+        self.published[task["taskId"]] = time.monotonic()
+        await self.client.publish_event(PUBSUB, TOPIC, task)
+
+    async def all_stored(self, seconds: float = 20) -> dict:
+        await _until(lambda: all(k in self.store.stored_at for k in self.published),
+                     seconds, f"events not stored: {len(self.store.stored_at)} of "
+                              f"{len(self.published)}")
+        check(self.broker.dead_letters == [], f"{len(self.broker.dead_letters)} dead letters")
+        ms = sorted(1e3 * (self.store.stored_at[k] - t) for k, t in self.published.items())
+        return {"events": len(ms), "p50": statistics.median(ms), "max": ms[-1]}
+
+    async def call(self, method: str, path: str, data=None):
+        return await self.client.invoke_method("priority-scorer", path,
+                                               http_method=method, data=data)
+
+    async def stats(self) -> dict:
+        reply = await self.call("GET", "ml/stats")
+        check(reply.status == 200, f"/ml/stats answered {reply.status}")
+        return reply.json()
+
+
+async def _runtime_burst() -> dict:
+    """Events published before warm-up ends, then a burst of events and
+    ``POST /score`` calls for the same tasks."""
+    rt = _Runtime()
+    await rt.start()
+    try:
+        for i in range(WARMUP_EVENTS):  # the warm-up runs in the background
+            await rt.publish(_saved_task("early", i))
+        await asyncio.wait_for(rt.host.wait_ready(), 600)
+        warm = await rt.all_stored()
+        declined_warm = dict(rt.host.declined)
+        check(declined_warm.get(503, 0) >= 1 and set(declined_warm) == {503},
+              f"warm-up deliveries declined {declined_warm}")
+
+        rt.published.clear()
+        tasks = [_saved_task("task", i) for i in range(RUNTIME_EVENTS)]
+        sync = [asyncio.ensure_future(rt.call("POST", "score", task))
+                for task in tasks[:RUNTIME_REQUESTS]]
+        for task in tasks:
+            await rt.publish(task)
+        replies = await asyncio.wait_for(asyncio.gather(*sync), 60)
+        burst = await rt.all_stored()
+        worst = 0.0
+        for task, reply in zip(tasks, replies):
+            check(reply.status == 200, f"/score answered {reply.status}: {reply.body!r}")
+            want = reply.json()
+            got = await rt.client.get_state("scores", task["taskId"])
+            check(got["priority"] == want["priority"],
+                  f"{task['taskId']}: stored {got} but /score answered {want}")
+            worst = max(worst, abs(got["confidence"] - want["confidence"]))
+        check(worst <= RUNTIME_CONFIDENCE_TOL, f"stored confidence off by {worst}")
+        stored = await rt.call("GET", f"scores/{tasks[0]['taskId']}")
+        check(stored.status == 200 and stored.json()["priority"] in service.PRIORITY_LABELS,
+              f"GET /scores answered {stored.status}")
+        check((await rt.call("GET", "scores/absent")).status == 404, "GET /scores/absent")
+        return {"warmup_latency_ms": warm, "burst_latency_ms": burst,
+                "nacks": {str(k): v for k, v in rt.host.declined.items()},
+                "score_requests": RUNTIME_REQUESTS, "max_abs_err_confidence": worst,
+                "stats": await rt.stats()}
+    finally:
+        await rt.host.stop()
+
+
+async def _runtime_admission() -> dict:
+    """A closed-loop flood of ``POST /score`` with events published into
+    it: the sampler sees the batcher's tokens in flight over the budget
+    and the front door sheds; each flood client stops at its first 429.
+    The events go out once the gate sheds, so that their first delivery
+    meets the shedding front door: published with the flood, the card
+    can score all of them before the sampler's first tick saturates."""
+    rt = _Runtime()
+    await rt.start()
+    try:
+        await asyncio.wait_for(rt.host.wait_ready(), 600)
+        shed: list[dict] = []
+        deadline = time.monotonic() + 15
+
+        async def client(i: int) -> int:
+            task = {"taskName": f"flood task {i}", "taskAssignedTo": "ops"}
+            served = 0
+            while time.monotonic() < deadline:
+                reply = await rt.call("POST", "score", task)
+                if reply.status == 429:
+                    # nothing yields between these calls: the gate is
+                    # in the state that answered the 429
+                    health = await rt.call("GET", "healthz")
+                    stats = await rt.call("GET", "ml/stats")
+                    shed.append({"retry_after": reply.headers.get("retry-after"),
+                                 "healthz": health.status, "stats": stats.status,
+                                 "stats_retry_after": stats.headers.get("retry-after")})
+                    return served
+                check(reply.status == 200, f"flood /score answered {reply.status}")
+                served += 1
+            return served
+
+        flood = [asyncio.ensure_future(client(i)) for i in range(FLOOD_CLIENTS)]
+        await _until(lambda: rt.scorer.admission.shedding, 15, "the flood never saturated")
+        # nothing yields between here and the publishes: the broker's
+        # first delivery runs while the gate still sheds (its next sample
+        # is up to SAMPLE_INTERVAL away)
+        for i in range(RUNTIME_EVENTS):
+            await rt.publish(_saved_task("flood", i))
+        served = await asyncio.wait_for(asyncio.gather(*flood), 30)
+        for seen in shed:
+            check(seen["retry_after"] is not None and int(seen["retry_after"]) >= 1,
+                  f"429 without Retry-After: {seen}")
+            check(seen["healthz"] == 204, f"/healthz answered {seen['healthz']} while shedding")
+            check(seen["stats"] == 429 and seen["stats_retry_after"] is not None,
+                  f"/ml/stats answered {seen['stats']} while shedding")
+        stored = await rt.all_stored(seconds=60)
+        await _until(lambda: not rt.scorer.admission.shedding, 10, "the gate did not reopen")
+        return {"latency_ms": stored, "flood_clients": FLOOD_CLIENTS,
+                "flood_served": sum(served), "shed_429": len(shed),
+                "retry_after": sorted({s["retry_after"] for s in shed}),
+                "nacks": {str(k): v for k, v in rt.host.declined.items()},
+                "stats": await rt.stats()}
+    finally:
+        await rt.host.stop()
+
+
+def phase_runtime(smi: str) -> int:
+    """The scorer on the port's runtime: returns B1's launches."""
+    cards = torch.cuda.device_count()
+    total = 0
+    for name, run, env in (
+            ("burst", _runtime_burst, {}),
+            ("admission", _runtime_admission,
+             {"TASKSRUNNER_ADMISSION": "1",
+              "TASKSRUNNER_ML_MAX_TOKENS": str(FLOOD_MAX_TOKENS)})):
+        os.environ.update(env)
+        try:
+            reset_counts()
+            started = time.monotonic()
+            result = asyncio.run(run())
+            seconds = time.monotonic() - started
+            launched = counts()
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        expected = expected_serve_launches(result["stats"], cards)
+        emit({"phase": "runtime", "part": name, "nvidia_smi": smi, **result,
+              "seconds": seconds, "flash_launches": launched["flash_fwd"],
+              "expected_launches": expected})
+        check(launched["flash_fwd"] == expected,
+              f"runtime {name}: flash launches {launched['flash_fwd']} != {expected}")
+        check(all(v == 0 for k, v in launched.items() if k != "flash_fwd"),
+              f"runtime {name} launched a backward or ring kernel: {launched}")
+        if name == "admission":
+            check(result["shed_429"] >= 1 and result["nacks"].get("429", 0) >= 1,
+                  f"the flood was not shed at the front door: {result}")
+        total += launched["flash_fwd"]
+    return total
 
 
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
@@ -1226,7 +1447,7 @@ def main() -> int:
     phase_gradient()
     phase_ring()
     phase_forward()
-    launches = {"flash_fwd": phase_serve()}
+    launches = {"flash_fwd": phase_serve() + phase_runtime(smi)}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()

@@ -20,9 +20,18 @@ each counterpart is easy to find:
   ranks of a mesh
 * ``mesh``        – ``Mesh(dp, sp, tp, group)``, the stand-in for the JAX
   ``("dp", "sp", "tp")`` mesh, and the collectives of the sharded model
-* ``batching``    – ``tasksrunner/ml/batching.py``: the micro-batcher
-* ``app``         – a standard-library HTTP front end for one app
-* ``service``     – ``tasksrunner/ml/service.py``: the scorer served
+* ``batching``    – ``tasksrunner/ml/batching.py``: the micro-batcher,
+  with its ``ml-request`` / ``ml-batch`` spans
+* ``app``         – ``tasksrunner/app.py``'s routes, subscriptions and
+  front door (admission), served over a standard-library HTTP server
+* ``service``     – ``tasksrunner/ml/service.py``: the scorer served, its
+  saved-task subscription and ``GET /scores/{id}``
+* the runtime parts the scorer uses, each a standard-library copy:
+  ``hosting`` (``InProcHost``, the in-process host), ``client``
+  (``AppClient``: in-process or over HTTP to a ``tasksrunner`` sidecar),
+  ``state`` and ``pubsub`` (the in-memory store and broker),
+  ``admission``, ``tracing``, ``spans`` (the runtime's sqlite trace
+  file) and ``cloudevents``
 * ``graft_entry`` – ``__graft_entry__.py``'s ``entry`` and its
   self-verifying ``dryrun_multichip`` over spawned ranks
 

@@ -15,11 +15,17 @@
   :class:`~tasksrunner_torch.errors.SaturatedError` once the queue is
   full.
 
+* **Spans.** When spans are recorded (:mod:`tasksrunner_torch.spans`),
+  ``submit`` captures the submitter's trace context; each batch records
+  one ``ml-batch`` span as its own trace root (many request traces
+  converge on one batch), and one ``ml-request`` span in each
+  submitter's trace, under its span, with the request's ``queue_wait``
+  and the batch's ``service`` time, ``bucket`` and ``batch_trace``. A
+  failed batch records them with status 500.
+
 The engine is model-agnostic: it schedules opaque items through a
 caller-supplied ``run_batch(items, bucket) -> results`` executed in a
 worker thread, so the event loop keeps serving while a batch runs.
-The JAX package's ``ml-request``/``ml-batch`` spans need its span
-recorder and are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
+from tasksrunner_torch import spans
 from tasksrunner_torch.envflag import env_number, env_str
 from tasksrunner_torch.errors import SaturatedError
 from tasksrunner_torch.metrics import MetricsRegistry
+from tasksrunner_torch.tracing import TraceContext, current_trace, hex8
 
 logger = logging.getLogger(__name__)
 
@@ -93,14 +101,16 @@ class BatcherConfig:
 
 
 class _Pending:
-    __slots__ = ("item", "tokens", "enqueued", "future")
+    __slots__ = ("item", "tokens", "enqueued", "future", "ctx")
 
     def __init__(self, item: Any, tokens: int, enqueued: float,
-                 future: asyncio.Future) -> None:
+                 future: asyncio.Future, ctx: TraceContext | None) -> None:
         self.item = item
         self.tokens = tokens
         self.enqueued = enqueued
         self.future = future
+        #: the submitter's trace context, captured only when spans are on
+        self.ctx = ctx
 
 
 class MicroBatcher:
@@ -176,7 +186,8 @@ class MicroBatcher:
             raise exc
         pending = _Pending(item, max(1, int(self._tokens_of(item))),
                            time.monotonic(),
-                           asyncio.get_running_loop().create_future())
+                           asyncio.get_running_loop().create_future(),
+                           current_trace() if spans.active() else None)
         self._submitted += 1
         self._tokens_in_flight += pending.tokens
         self._queue.put_nowait(pending)
@@ -244,6 +255,7 @@ class MicroBatcher:
     async def _execute(self, batch: list[_Pending]) -> None:
         bucket = self.bucket_for(len(batch))
         label = str(bucket)
+        wall = time.time()
         waits = [time.monotonic() - p.enqueued for p in batch]
         self.registry.observe("ml_batch_size", float(len(batch)))
         self.registry.observe_many("ml_queue_wait_seconds", waits, bucket=label)
@@ -254,13 +266,16 @@ class MicroBatcher:
         except Exception as exc:
             logger.exception("inference batch of %d (bucket %d) failed",
                              len(batch), bucket)
+            self._record_spans(batch, waits, bucket, wall,
+                               time.monotonic() - started, 500)
             self._account_done(batch)
             for p in batch:
                 if not p.future.done():
                     p.future.set_exception(exc)
             return
-        self.registry.observe("ml_infer_latency_seconds",
-                              time.monotonic() - started, bucket=label)
+        service = time.monotonic() - started
+        self.registry.observe("ml_infer_latency_seconds", service, bucket=label)
+        self._record_spans(batch, waits, bucket, wall, service, 200)
         self.registry.inc("ml_batches_total", bucket=label)
         self._batch_counts[bucket] = self._batch_counts.get(bucket, 0) + 1
         self._account_done(batch)
@@ -279,6 +294,28 @@ class MicroBatcher:
                 p.future.set_exception(result)
             else:
                 p.future.set_result(result)
+
+    def _record_spans(self, batch: list[_Pending], waits: list[float], bucket: int,
+                      wall: float, service: float, status: int) -> None:
+        """One ml-batch span, its own trace, and one ml-request span in
+        each submitter's trace; explicit ids throughout, since the worker
+        task has no submitter's context."""
+        if not spans.active():
+            return
+        batch_ctx = TraceContext.new()
+        spans.record_span(
+            kind="internal", name="ml-batch", status=status, start=wall,
+            duration=service, attrs={"bucket": bucket, "size": len(batch)},
+            trace_id=batch_ctx.trace_id, span_id=batch_ctx.span_id)
+        for p, wait in zip(batch, waits):
+            if p.ctx is None:
+                continue
+            spans.record_span(
+                kind="internal", name="ml-request", status=status,
+                start=wall - wait, duration=wait + service,
+                attrs={"queue_wait": wait, "service": service,
+                       "bucket": bucket, "batch_trace": batch_ctx.trace_id},
+                trace_id=p.ctx.trace_id, span_id=hex8(), parent_id=p.ctx.span_id)
 
     def _account_done(self, batch: list[_Pending]) -> None:
         self._completed += len(batch)

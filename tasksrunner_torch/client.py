@@ -1,0 +1,184 @@
+"""The app's runtime client: the part of ``tasksrunner/client.py``'s
+``AppClient`` the scorer uses, with its two transports behind one surface
+(``save_state``, ``get_state``, ``publish_event``, ``invoke_method``).
+
+* :meth:`AppClient.http` talks to a sidecar over HTTP/1.1 on
+  ``127.0.0.1``: the Dapr-shaped ``/v1.0/state/{store}``,
+  ``/v1.0/state/{store}/{key}``, ``/v1.0/publish/{pubsub}/{topic}`` and
+  ``/v1.0/invoke/{app}/method/{path}``. The port is the one given, else
+  ``TASKSRUNNER_HTTP_PORT`` read at each call (so an app may be built
+  before its sidecar has a port), else 3500. ``tr-api-token`` goes with
+  every call when ``TASKSRUNNER_API_TOKEN`` is set, and a ``traceparent``
+  child of the ambient trace. Requests go over asyncio streams, never a
+  blocking client on the event loop.
+* :meth:`AppClient.direct` goes through an in-process host
+  (:class:`~tasksrunner_torch.hosting.InProcHost`).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+from typing import Any
+from urllib.parse import quote
+
+from tasksrunner_torch.errors import InvocationError
+from tasksrunner_torch.tracing import TRACEPARENT_HEADER, outgoing_headers
+
+DEFAULT_SIDECAR_PORT = 3500
+PORT_ENV = "TASKSRUNNER_HTTP_PORT"
+TOKEN_ENV = "TASKSRUNNER_API_TOKEN"
+TOKEN_HEADER = "tr-api-token"
+MAX_RESPONSE_HEAD_BYTES = 64 * 1024
+
+
+class InvocationResponse:
+    def __init__(self, status: int, headers: dict[str, str], body: bytes) -> None:
+        self.status = status
+        self.headers = headers  # names lowercased
+        self.body = body
+
+    def json(self) -> Any:
+        return json.loads(self.body) if self.body else None
+
+
+async def http_request(host: str, port: int, method: str, path: str, *,
+                       headers: dict[str, str] | None = None,
+                       body: bytes = b"") -> tuple[int, dict[str, str], bytes]:
+    """One HTTP/1.1 request on its own connection: (status, headers with
+    lowercase names, body). Reads a body by its Content-Length, in
+    chunks, or to the end of the stream."""
+    reader, writer = await asyncio.open_connection(host, port, limit=MAX_RESPONSE_HEAD_BYTES)
+    try:
+        lines = [f"{method} {path} HTTP/1.1", f"Host: {host}:{port}",
+                 f"Content-Length: {len(body)}", "Connection: close"]
+        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
+        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + body)
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+        status = int(head[0].split(" ", 2)[1])
+        reply_headers = {}
+        for line in head[1:]:
+            name, sep, value = line.partition(":")
+            if sep:
+                reply_headers[name.strip().lower()] = value.strip()
+        if "chunked" in reply_headers.get("transfer-encoding", ""):
+            payload = b""
+            while size := int((await reader.readuntil(b"\r\n")).split(b";")[0], 16):
+                payload += await reader.readexactly(size)
+                await reader.readexactly(2)
+        elif "content-length" in reply_headers:
+            payload = await reader.readexactly(int(reply_headers["content-length"]))
+        else:
+            payload = await reader.read()
+        return status, reply_headers, payload
+    finally:
+        writer.close()
+
+
+class _HTTPTransport:
+    def __init__(self, host: str, port: int | None) -> None:
+        self.host = host
+        self._port = port
+
+    async def _request(self, method: str, path: str, *, headers: dict[str, str] | None = None,
+                       body: bytes = b"") -> tuple[int, dict[str, str], bytes]:
+        port = self._port or int(os.environ.get(PORT_ENV) or DEFAULT_SIDECAR_PORT)
+        headers = dict(headers or {})
+        if TRACEPARENT_HEADER not in headers:
+            headers.update(outgoing_headers())
+        token = os.environ.get(TOKEN_ENV)
+        if token:
+            headers.setdefault(TOKEN_HEADER, token)
+        try:
+            return await http_request(self.host, port, method, path, headers=headers, body=body)
+        except (OSError, asyncio.IncompleteReadError) as exc:
+            raise InvocationError(f"sidecar unreachable at {self.host}:{port}: {exc}") from exc
+
+    async def _checked(self, context: str, method: str, path: str,
+                       body: bytes = b"") -> tuple[int, bytes]:
+        headers = {"content-type": "application/json"} if body else None
+        status, _, payload = await self._request(method, path, headers=headers, body=body)
+        if status >= 300:
+            raise InvocationError(f"{context}: {status} {payload[:200]!r}", status=status)
+        return status, payload
+
+    async def save_state(self, store: str, key: str, value: Any) -> None:
+        await self._checked(f"save state {store}", "POST", f"/v1.0/state/{quote(store)}",
+                            json.dumps([{"key": key, "value": value}]).encode())
+
+    async def get_state(self, store: str, key: str) -> Any:
+        status, payload = await self._checked(
+            f"get state {store}", "GET",
+            f"/v1.0/state/{quote(store)}/{quote(key, safe='')}")
+        return json.loads(payload) if status == 200 and payload else None
+
+    async def publish(self, pubsub: str, topic: str, data: Any) -> None:
+        await self._checked(f"publish {pubsub}/{topic}", "POST",
+                            f"/v1.0/publish/{quote(pubsub)}/{quote(topic)}",
+                            json.dumps(data).encode())
+
+    async def invoke(self, app_id: str, method_path: str, http_method: str,
+                     headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
+        path = f"/v1.0/invoke/{quote(app_id)}/method/" + method_path.lstrip("/")
+        return await self._request(http_method, path, headers=headers, body=body)
+
+
+class _DirectTransport:
+    def __init__(self, host: Any, app_id: str) -> None:
+        self._host = host
+        self._app_id = app_id
+
+    async def save_state(self, store: str, key: str, value: Any) -> None:
+        await self._host.state_store(store).set(key, value)
+
+    async def get_state(self, store: str, key: str) -> Any:
+        return await self._host.state_store(store).get(key)
+
+    async def publish(self, pubsub: str, topic: str, data: Any) -> None:
+        await self._host.publish(self._app_id, pubsub, topic, data)
+
+    async def invoke(self, app_id: str, method_path: str, http_method: str,
+                     headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
+        return await self._host.invoke(app_id, http_method, method_path, headers, body)
+
+
+class AppClient:
+    """Make one with :meth:`http` beside a sidecar, or :meth:`direct` in
+    an in-process host."""
+
+    def __init__(self, transport: _HTTPTransport | _DirectTransport) -> None:
+        self._t = transport
+
+    @classmethod
+    def http(cls, port: int | None = None, host: str = "127.0.0.1") -> AppClient:
+        return cls(_HTTPTransport(host, port))
+
+    @classmethod
+    def direct(cls, host: Any, app_id: str) -> AppClient:
+        """The client of app ``app_id`` in the in-process ``host``."""
+        return cls(_DirectTransport(host, app_id))
+
+    async def save_state(self, store: str, key: str, value: Any) -> None:
+        await self._t.save_state(store, key, value)
+
+    async def get_state(self, store: str, key: str) -> Any:
+        """The value under ``key``, or None when there is none."""
+        return await self._t.get_state(store, key)
+
+    async def publish_event(self, pubsub: str, topic: str, data: Any) -> None:
+        """Publish ``data``; the runtime wraps it in a CloudEvent."""
+        await self._t.publish(pubsub, topic, data)
+
+    async def invoke_method(self, app_id: str, method_path: str, *,
+                            http_method: str = "POST", data: Any = None,
+                            headers: dict[str, str] | None = None) -> InvocationResponse:
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        body = b""
+        if data is not None:
+            body = json.dumps(data).encode()
+            headers.setdefault("content-type", "application/json")
+        status, reply_headers, payload = await self._t.invoke(
+            app_id, method_path, http_method, headers, body)
+        return InvocationResponse(status, reply_headers, payload)

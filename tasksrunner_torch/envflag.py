@@ -4,7 +4,9 @@ A private copy of the parsing of ``tasksrunner.envflag.env_flag``, for
 the ``TASKSRUNNER_*`` names the scorer reads. Each keeps the meaning and
 default the JAX package declares for it, so one setting drives both
 packages. An undeclared ``TASKSRUNNER_*`` name is refused, as it is
-there.
+there. The runtime's ``TASKSRUNNER_TRACE_DB``, ``TASKSRUNNER_HTTP_PORT``
+and ``TASKSRUNNER_API_TOKEN`` are read with ``os.environ`` where they are
+used (``spans``, ``client``), as the JAX package reads them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ DECLARED = frozenset({
     "TASKSRUNNER_ML_BUCKETS",      # comma-separated ints
     "TASKSRUNNER_ML_MAX_QUEUE",    # int
     "TASKSRUNNER_ML_MAX_TOKENS",   # int
+    "TASKSRUNNER_ADMISSION",       # bool, off: shed with 429 when saturated
+    "TASKSRUNNER_ADMISSION_MAX_INFLIGHT",  # int, 64: in-flight requests at score 1.0
 })
 
 

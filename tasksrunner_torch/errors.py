@@ -1,5 +1,6 @@
-"""The error the serving plane raises when it sheds load: the
-counterpart of ``tasksrunner.errors.SaturatedError``."""
+"""The errors of the port: the counterparts of
+``tasksrunner.errors.SaturatedError`` (the serving plane sheds load) and
+``InvocationError`` (a runtime call failed)."""
 
 from __future__ import annotations
 
@@ -13,3 +14,13 @@ class SaturatedError(Exception):
     http_status = 429
     #: seconds the server asks the caller to stay away, or None
     retry_after: float | None = None
+
+
+class InvocationError(Exception):
+    """A call through the app's runtime client failed: the runtime was
+    unreachable, or it answered a state, publish or invoke call with an
+    error status (:attr:`status`; None when nothing answered)."""
+
+    def __init__(self, message: str, *, status: int | None = None) -> None:
+        super().__init__(message)
+        self.status = status

@@ -2,6 +2,10 @@
 ``tasksrunner.observability.metrics.MetricsRegistry`` the batcher calls
 (``inc``, ``set_gauge``, ``observe``, ``observe_many``, ``snapshot``).
 
+Each batcher keeps its own registry (``GET /metrics``); :data:`metrics`
+is the process-wide one, which the admission controller writes
+(``admission_state``, ``admission_saturation``, ``admission_shed_total``).
+
 A histogram keeps its count, sum and largest value per label set, which
 is bounded in memory; the JAX package's log2 buckets, exemplars and
 Prometheus exposition are not ported.
@@ -70,3 +74,7 @@ class MetricsRegistry:
                 out[_flat(f"{n}_max", ls)] = peak
         out["uptime_seconds"] = time.time() - self.started_at
         return out
+
+
+#: the process-wide registry
+metrics = MetricsRegistry()

@@ -6,12 +6,30 @@
   scores to their tasks. 400 for a body that is not a JSON object, 429
   + ``Retry-After`` when the batcher sheds, 503 + ``Retry-After`` while
   the model warms up.
+* the ``tasksavedtopic`` subscription (``POST /on-task-saved``): every
+  saved task is scored and the score saved under its ``taskId`` in the
+  ``scores`` state store, as the Tasks Tracker's processor consumes the
+  same topic. 503 + ``Retry-After`` during warm-up and 429 +
+  ``Retry-After`` when the batcher sheds: the runtime then redelivers
+  the event after that many seconds without using up an attempt. A
+  non-task event is acked with 200; a delivery whose score could not be
+  saved is answered 500, so the runtime redelivers it: an acked event is
+  one whose score was saved.
+* ``GET /scores/{task_id}``: the stored score, or 404.
 * ``GET /ml/stats``: the batcher's counters, ``ready``, and
   ``jit_cache_size``, the number of distinct batch shapes the forward
   has run. PyTorch runs eagerly and compiles nothing per shape, but the
   number still shows the bucket discipline: it equals the ladder's
   length after warm-up and stays there under any burst.
 * ``GET /metrics``: the batcher's ``ml_*`` metrics.
+
+After warm-up the batcher's ``saturation()`` is registered as the
+admission signal ``ml_tokens_in_flight`` (unregistered at shutdown), so
+with ``TASKSRUNNER_ADMISSION`` on a flood is shed with 429 at the front
+door (:mod:`tasksrunner_torch.admission`). The subscription and the
+state store need a runtime: an :class:`~tasksrunner_torch.hosting.InProcHost`
+in the same process, or a ``tasksrunner sidecar --app-port P`` beside
+the app's ``App.start``.
 
 Requests go through :class:`~tasksrunner_torch.batching.MicroBatcher`:
 batches are padded up the bucket ladder, and each runs ``forward`` and
@@ -26,10 +44,6 @@ over the devices is split over them (:func:`place_tokens`, service.py:81-90
 of the JAX package); any other bucket runs on the first device. The
 probabilities come back in row order, one device-to-host copy per
 device. With one device, as on one card, nothing of this runs.
-
-The JAX service's ``tasksavedtopic`` subscription, ``GET /scores/{id}``
-and admission-signal registration need the runtime's broker, state store
-and admission controller; they are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tasksrunner_torch import admission
 from tasksrunner_torch.app import App, Request, Response
 from tasksrunner_torch.batching import BatcherConfig, MicroBatcher
 from tasksrunner_torch.device import resolve_device
@@ -77,11 +92,15 @@ def batch_probs(replicas: list[dict], devices: list, tokens: np.ndarray, *,
         return np.concatenate([p.cpu().numpy() for p in probs])
 
 
-def make_app(*, device: str | torch.device | None = None) -> App:
+def make_app(*, pubsub: str = "taskspubsub", topic: str = "tasksavedtopic",
+             state_store: str = "scores",
+             device: str | torch.device | None = None) -> App:
     """The scorer as an :class:`App` with id ``priority-scorer``, its
-    params drawn from seed 0. It serves on ``device`` when one is given,
-    else on every visible card (:func:`~tasksrunner_torch.model.serving_mesh`;
-    on one card, ``cuda:0``)."""
+    params drawn from seed 0, subscribed to ``topic`` on ``pubsub`` and
+    saving scores in ``state_store``. It serves on ``device`` when one is
+    given, else on every visible card
+    (:func:`~tasksrunner_torch.model.serving_mesh`; on one card,
+    ``cuda:0``)."""
     mesh = serving_mesh() if device is None else None
     devs = list(mesh) if mesh else [resolve_device(device)]
     cfg = ModelConfig(n_classes=len(PRIORITY_LABELS))
@@ -130,11 +149,21 @@ def make_app(*, device: str | torch.device | None = None) -> App:
 
         params = await asyncio.to_thread(build)
         batcher.start()
+        admission.register_signal("ml_tokens_in_flight", batcher.saturation)
         loaded["params"] = params
 
     @app.on_shutdown
     async def unload_model() -> None:
+        admission.unregister_signal("ml_tokens_in_flight")
         await batcher.stop()
+
+    def _not_ready() -> Response:
+        return Response(503, {"error": "model loading, retry shortly"},
+                        headers={"Retry-After": str(WARMUP_RETRY_AFTER)})
+
+    def _shed(exc: SaturatedError) -> Response:
+        return Response(429, {"error": str(exc)},
+                        headers={"Retry-After": str(int(exc.retry_after or 1))})
 
     def _encode(task: dict) -> np.ndarray:
         text = " ".join(
@@ -145,8 +174,7 @@ def make_app(*, device: str | torch.device | None = None) -> App:
     @app.post("/score")
     async def score(req: Request) -> Any:
         if "params" not in loaded:
-            return Response(503, {"error": "model loading, retry shortly"},
-                            headers={"Retry-After": str(WARMUP_RETRY_AFTER)})
+            return _not_ready()
         try:
             task = req.json()
         except ValueError:
@@ -156,11 +184,32 @@ def make_app(*, device: str | torch.device | None = None) -> App:
         try:
             result = await batcher.submit(_encode(task))
         except SaturatedError as exc:
-            return Response(429, {"error": str(exc)},
-                            headers={"Retry-After": str(int(exc.retry_after or 1))})
+            return _shed(exc)
         if task.get("taskId") is not None:
             result = {**result, "taskId": str(task["taskId"])}
         return result
+
+    @app.subscribe(pubsub, topic, "/on-task-saved")
+    async def on_task_saved(req: Request) -> Any:
+        if "params" not in loaded:
+            return _not_ready()  # Retry-After: the runtime backs off
+        task = req.data  # the CloudEvents envelope unwrapped
+        if not isinstance(task, dict) or not task.get("taskId"):
+            return 200  # not a task event; ack and move on
+        try:
+            result = await batcher.submit(_encode(task))
+        except SaturatedError as exc:
+            return _shed(exc)
+        await app.client.save_state(state_store, str(task["taskId"]), result)
+        return 200
+
+    @app.get("/scores/{task_id}")
+    async def get_score(req: Request) -> Any:
+        task_id = req.path_params["task_id"]
+        value = await app.client.get_state(state_store, task_id)
+        if value is None:
+            return 404, {"error": f"no score for {task_id}"}
+        return value
 
     @app.get("/ml/stats")
     async def ml_stats(req: Request) -> dict:

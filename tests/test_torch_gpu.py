@@ -407,3 +407,44 @@ def test_sharded_dryrun_with_every_rank_on_the_card(card):
     assert [r["launches"] for r in reports] == [
         {"flash_fwd": 0, "flash_bwd_delta": 0, "flash_bwd_fused": 0,
          "flash_ring": n, "flash_ring_bwd": n}] * 4
+
+
+async def test_scorer_on_the_runtime_stores_a_saved_task(card):
+    """make_app() (cuda:0) hosted in an InProcHost: one saved-task event,
+    published while the model warms up, is scored on the card and stored,
+    with the score ``POST /score`` gives the same task."""
+    import asyncio
+
+    from tasksrunner_torch import service
+    from tasksrunner_torch.app import App
+    from tasksrunner_torch.hosting import InProcHost
+    from tasksrunner_torch.pubsub import InMemoryBroker
+    from tasksrunner_torch.state import InMemoryStateStore
+
+    store = InMemoryStateStore("scores")
+    broker = InMemoryBroker("taskspubsub", max_attempts=1)
+    host = InProcHost(state_stores={"scores": store}, brokers={"taskspubsub": broker})
+    host.add_app(service.make_app())
+    host.add_app(App("some-api"))
+    task = {"taskId": "gpu-1", "taskName": "rotate the keys", "taskAssignedTo": "ops"}
+    before = flash.launches
+    await asyncio.wait_for(host.start(), 60)
+    try:
+        client = host.client("some-api")
+        await asyncio.wait_for(client.publish_event("taskspubsub", "tasksavedtopic", task), 10)
+        await asyncio.wait_for(host.wait_ready(), 600)
+
+        async def stored():
+            while "gpu-1" not in store.keys():
+                await asyncio.sleep(0.01)
+        await asyncio.wait_for(stored(), 30)
+        got = (await asyncio.wait_for(client.invoke_method(
+            "priority-scorer", "scores/gpu-1", http_method="GET"), 10)).json()
+        want = (await asyncio.wait_for(client.invoke_method(
+            "priority-scorer", "score", data=task), 10)).json()
+    finally:
+        await asyncio.wait_for(host.stop(), 30)
+    assert broker.dead_letters == []
+    assert got["priority"] == want["priority"]
+    assert abs(got["confidence"] - want["confidence"]) <= 1e-3
+    assert flash.launches > before
