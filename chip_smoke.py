@@ -69,7 +69,14 @@ exit, traceback) at the first phase that does not hold:
     the served sp-2 path; the kernels at the sharded phase's per-rank
     shapes;
 13. profile: the forward's and the train step's device busy share and
-    largest kernels, from ``torch.profiler``, single-device and at sp 4.
+    largest kernels, from ``torch.profiler``, single-device and at sp 4;
+14. bench: ``bench.py``'s lanes on the port (``tasksrunner_torch.bench``):
+    the bench-config train step with the flash and the einsum core (time,
+    TFLOP/s, MFU, one B1 and one B2 launch per layer and step under flash,
+    none under einsum), and the serial and batched ``/score`` lanes and
+    the flood drill on the in-process host (no mismatch, no recompile,
+    every 429 with Retry-After, the flood's queue wait within its bound),
+    with the launch counts set to 0 just before and read just after.
 
 Earlier lines are JSON records; the line before the last holds every
 kernel's numbers; the last line is
@@ -95,7 +102,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from tasksrunner_torch import (  # noqa: E402
-    _kernels, flash, graft_entry, model, ring, service, train,
+    _kernels, bench, flash, graft_entry, model, ring, service, train,
 )
 from tasksrunner_torch.app import App  # noqa: E402
 from tasksrunner_torch.client import http_request  # noqa: E402
@@ -1432,6 +1439,48 @@ def phase_profile() -> None:
         del params
 
 
+def phase_bench(smi: str) -> dict:
+    """bench.py's train-step and serving lanes on the port: counts set to
+    0 just before, read just after. Returns the kernels' launches."""
+    reset_counts()
+    step = bench.run_step_bench()
+    step_launches = counts()
+    serve = asyncio.run(bench.run_ml_serve_bench())
+    launched = counts()
+    lanes = (serve["serial"], serve["batched"], serve["flood"])
+    # one forward per layer for each warmed bucket and each batch run
+    serve_expected = SERVED.n_layers * sum(
+        lane["jit_cache_size_after_load"] + sum(lane["batches"].values()) for lane in lanes)
+    emit({"phase": "bench", "nvidia_smi": smi, "step": step, "serve": serve,
+          "launches": launched, "serve_expected_flash_fwd": serve_expected})
+    losses = step["losses"] + step["einsum_core_losses"]
+    check(all(math.isfinite(x) for x in losses), f"bench step losses {losses}")
+    check(step["mfu"] is not None and 0 < step["mfu"] <= 1.05, f"bench mfu {step['mfu']}")
+    per_core = (step["steps"] + 1) * BENCH.n_layers
+    check(step["launches"] == {"flash_fwd": per_core, "flash_bwd_delta": per_core,
+                               "flash_bwd_fused": 0, "flash_ring": 0, "flash_ring_bwd": 0},
+          f"bench step launches {step['launches']}, expected {per_core} B1 and B2")
+    check(not any(step["einsum_core_launches"].values()),
+          f"the einsum core launched {step['einsum_core_launches']}")
+    check(launched["flash_fwd"] - step_launches["flash_fwd"] == serve_expected,
+          f"serve lanes' B1 launches {launched['flash_fwd'] - step_launches['flash_fwd']} "
+          f"!= {serve_expected}")
+    check(launched["flash_bwd_delta"] == step_launches["flash_bwd_delta"],
+          "the serve lanes launched a backward kernel")
+    for name in ("serial", "batched"):
+        check(serve[name]["response_mismatches"] == 0,
+              f"{name} lane: {serve[name]['response_mismatches']} mismatches")
+    check(serve["zero_recompiles"], "a serve lane ran a shape after warm-up")
+    flood = serve["flood"]
+    check(flood["shed"] > 0 and flood["shed_without_retry_after"] == 0
+          and flood["shed_carry_retry_after"], f"the flood did not shed with Retry-After: {flood}")
+    check(flood["other_statuses"] == 0, f"the flood got {flood['other_statuses']} other statuses")
+    check(flood["queue_wait_bounded"],
+          f"flood p99 queue wait {flood['queue_wait_p99_ms']} ms over "
+          f"{flood['bound_with_resolution_ms']} ms")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1455,6 +1504,9 @@ def main() -> int:
     phase_sharded()
     timed = phase_times()
     phase_profile()
+    benched = phase_bench(smi)
+    for name in ("flash_fwd", "flash_bwd_delta"):
+        launches[name] += benched[name]
     sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",
                              "tasksrunner/ml/flash.py:130"),
                "flash_bwd_delta": ("tasksrunner_torch/csrc/flash_bwd.cu",

@@ -42,7 +42,7 @@ from typing import Any, Awaitable, Callable
 from tasksrunner_torch import cloudevents, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.client import AppClient
-from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.metrics import MetricsRegistry, metrics
 from tasksrunner_torch.tracing import TRACEPARENT_HEADER, ensure_trace, trace_scope
 
 logger = logging.getLogger(__name__)
@@ -139,6 +139,8 @@ class App:
         self.admission: AdmissionController | None = None
         #: requests being dispatched (admission's in-flight signal)
         self.inflight = 0
+        #: the app's own metrics, where it keeps any (the scorer: its batcher's)
+        self.registry: MetricsRegistry | None = None
 
     # -- registration ----------------------------------------------------
 

@@ -102,13 +102,21 @@ constexpr int CONSUMERS = 256;
 constexpr int BLOCK_THREADS = CONSUMERS + 128;
 constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
 
+// the depth of the Q / dO ring below d 128 (a compile-time knob: the build
+// sets -DTR_BWD_STAGES=n from TRTORCH_BWD_STAGES; at d 128 shared memory
+// allows 2)
+#ifndef TR_BWD_STAGES
+#define TR_BWD_STAGES 4
+#endif
+static_assert(TR_BWD_STAGES >= 1, "the ring needs a stage");
+
 // the shared-memory layout of a block, offsets from a 1024-byte aligned base
 template <int D, bool WITH_O>
 struct Layout {
   static constexpr int NA = D < 64 ? D : 64;  // columns of a TMA box
   static constexpr int NB = D / NA;           // boxes across d
   static constexpr int SW = NA * 2;           // bytes of a box row, the swizzle span
-  static constexpr int STAGES = D == 128 ? 2 : 4;  // depth of the Q / dO ring
+  static constexpr int STAGES = D == 128 ? 2 : TR_BWD_STAGES;  // depth of the Q / dO ring
   static constexpr int KV = BN * D * 2;       // a K or V tile
   static constexpr int QT = BM * D * 2;       // a Q, dO or O tile
   static constexpr int STAGE = (WITH_O ? 3 : 2) * QT;

@@ -83,13 +83,20 @@ constexpr int BLOCK_THREADS = CONSUMERS + 128;
 constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
 constexpr float LN2 = 0.6931471805599453f;
 
+// the depth of the K/V ring below d 128 (a compile-time knob: the build sets
+// -DTR_FWD_STAGES=n from TRTORCH_FWD_STAGES; at d 128 shared memory allows 2)
+#ifndef TR_FWD_STAGES
+#define TR_FWD_STAGES 4
+#endif
+static_assert(TR_FWD_STAGES >= 2, "the consumers hold one K/V stage while the next one loads");
+
 // the shared-memory layout of a block, offsets from a 1024-byte aligned base
 template <int D>
 struct Layout {
   static constexpr int NA = D < 64 ? D : 64;       // columns of a TMA box
   static constexpr int NB = D / NA;                // boxes across d
   static constexpr int SW = NA * 2;                // bytes of a box row, the swizzle span
-  static constexpr int STAGES = D == 128 ? 2 : 4;  // depth of the K/V ring
+  static constexpr int STAGES = D == 128 ? 2 : TR_FWD_STAGES;  // depth of the K/V ring
   static constexpr int TILE = 128 * D * 2;         // a Q, K or V tile (BM = BN = 128)
   static constexpr int Q_OFF = 0;                  // two Q slots
   static constexpr int STAGE_OFF = 2 * TILE;       // stage i: K, then V

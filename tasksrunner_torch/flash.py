@@ -189,12 +189,13 @@ _SOURCES = {"flash_ring_bwd": "flash_bwd"}
 def _kernel(name: str = "flash_fwd"):
     """The bound C entry ``tr_<name>`` of ``csrc/<name>.cu`` (or of the
     source ``_SOURCES`` names), built and loaded at first use."""
-    fn = _entries.get(name)
+    key = (name, _kernels.defines())
+    fn = _entries.get(key)
     if fn is None:
         fn = getattr(_kernels.library(_SOURCES.get(name, name)), f"tr_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _entries[name] = fn
+        _entries[key] = fn
     return fn
 
 

@@ -1,20 +1,29 @@
 """Counters, gauges and histograms for the serving plane: the part of
-``tasksrunner.observability.metrics.MetricsRegistry`` the batcher calls
-(``inc``, ``set_gauge``, ``observe``, ``observe_many``, ``snapshot``).
+``tasksrunner.observability.metrics`` the batcher and the benches call
+(``inc``, ``set_gauge``, ``observe``, ``observe_many``, ``snapshot``,
+``snapshot_histograms`` and :func:`estimate_percentile`).
 
 Each batcher keeps its own registry (``GET /metrics``); :data:`metrics`
 is the process-wide one, which the admission controller writes
 (``admission_state``, ``admission_saturation``, ``admission_shed_total``).
 
-A histogram keeps its count, sum and largest value per label set, which
-is bounded in memory; the JAX package's log2 buckets, exemplars and
-Prometheus exposition are not ported.
+A histogram keeps, per label set, its count, sum and largest value and
+the counts of the JAX package's fixed log2 buckets (:data:`DEFAULT_BOUNDS`,
+``len(bounds) + 1`` counts, the last one past the top bound), so a
+snapshot's percentiles are those the JAX registry gives for the same
+observations. Its trace exemplars and Prometheus exposition are not
+ported.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from bisect import bisect_left
+from typing import Any
+
+#: 100 µs · 2^i for i < 21 (to about 105 s): tasksrunner/observability/metrics.py:56
+DEFAULT_BOUNDS: tuple[float, ...] = tuple(1e-4 * 2.0**i for i in range(21))
 
 _Key = tuple[str, tuple[tuple[str, str], ...]]
 
@@ -29,6 +38,16 @@ def _flat(name: str, labels: tuple[tuple[str, str], ...]) -> str:
     return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
 
+class _Series:
+    __slots__ = ("count", "sum", "max", "counts")
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.sum = 0.0
+        self.max = float("-inf")
+        self.counts = [0] * (len(DEFAULT_BOUNDS) + 1)
+
+
 class MetricsRegistry:
     """Thread-safe: the batcher records from the event loop, the
     service's batches run in a worker thread."""
@@ -37,7 +56,7 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._counters: dict[_Key, float] = {}
         self._gauges: dict[_Key, float] = {}
-        self._histograms: dict[_Key, list[float]] = {}  # [count, sum, max]
+        self._histograms: dict[_Key, _Series] = {}
         self.started_at = time.time()
 
     def inc(self, name: str, value: float = 1.0, **labels: str) -> None:
@@ -57,10 +76,16 @@ class MetricsRegistry:
             return
         key = _key(name, labels)
         with self._lock:
-            hist = self._histograms.setdefault(key, [0, 0.0, float("-inf")])
-            hist[0] += len(values)
-            hist[1] += sum(values)
-            hist[2] = max(hist[2], max(values))
+            series = self._histograms.get(key)
+            if series is None:
+                series = self._histograms[key] = _Series()
+            series.count += len(values)
+            series.sum += sum(values)
+            series.max = max(series.max, max(values))
+            for value in values:
+                # bucket i holds bounds[i-1] < value <= bounds[i], as the
+                # JAX registry's fold (bisect_right of each bound) counts
+                series.counts[bisect_left(DEFAULT_BOUNDS, value)] += 1
 
     def snapshot(self) -> dict[str, float]:
         """Flat ``name{label=value,...}`` → value; a histogram shows as
@@ -68,12 +93,49 @@ class MetricsRegistry:
         with self._lock:
             out = {_flat(n, ls): v for (n, ls), v in self._counters.items()}
             out.update({_flat(n, ls): v for (n, ls), v in self._gauges.items()})
-            for (n, ls), (count, total, peak) in self._histograms.items():
-                out[_flat(f"{n}_count", ls)] = count
-                out[_flat(f"{n}_sum", ls)] = total
-                out[_flat(f"{n}_max", ls)] = peak
+            for (n, ls), series in self._histograms.items():
+                out[_flat(f"{n}_count", ls)] = series.count
+                out[_flat(f"{n}_sum", ls)] = series.sum
+                out[_flat(f"{n}_max", ls)] = series.max
         out["uptime_seconds"] = time.time() - self.started_at
         return out
+
+    def snapshot_histograms(self) -> dict[str, dict[str, Any]]:
+        """Each histogram as ``{"bounds": [...], "series": [{"labels",
+        "counts", "count", "sum", "max"}, ...]}``, series sorted by their
+        labels: the shape of the JAX registry's ``snapshot_histograms``
+        (without exemplars), so two snapshots diff bucket by bucket."""
+        out: dict[str, dict[str, Any]] = {}
+        with self._lock:
+            for (name, labels), series in sorted(self._histograms.items()):
+                hist = out.setdefault(name, {"bounds": list(DEFAULT_BOUNDS), "series": []})
+                hist["series"].append({"labels": dict(labels), "counts": list(series.counts),
+                                       "count": series.count, "sum": series.sum,
+                                       "max": series.max})
+        return out
+
+
+def estimate_percentile(bounds: list[float], counts: list[int], q: float) -> float:
+    """The q-quantile (0..1) of bucket ``counts`` over ``bounds``, by
+    linear interpolation inside the bucket that holds it; observations
+    past the top bound clamp to it (tasksrunner/observability/metrics.py:480)."""
+    total = sum(counts)
+    if total == 0:
+        return 0.0
+    rank = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        prev_cum = cum
+        cum += c
+        if cum >= rank:
+            if i >= len(bounds):
+                return bounds[-1]
+            lo = bounds[i - 1] if i > 0 else 0.0
+            frac = (rank - prev_cum) / c
+            return lo + (bounds[i] - lo) * frac
+    return bounds[-1]
 
 
 #: the process-wide registry

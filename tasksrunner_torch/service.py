@@ -21,7 +21,9 @@
   has run. PyTorch runs eagerly and compiles nothing per shape, but the
   number still shows the bucket discipline: it equals the ladder's
   length after warm-up and stays there under any burst.
-* ``GET /metrics``: the batcher's ``ml_*`` metrics.
+* ``GET /metrics``: the batcher's ``ml_*`` metrics, flat; the app's
+  ``registry`` is the batcher's, whose ``snapshot_histograms()`` gives
+  the queue wait and service time per bucket.
 
 After warm-up the batcher's ``saturation()`` is registered as the
 admission signal ``ml_tokens_in_flight`` (unregistered at shutdown), so
@@ -136,6 +138,7 @@ def make_app(*, pubsub: str = "taskspubsub", topic: str = "tasksavedtopic",
     batcher = MicroBatcher(
         _run_batch, config=bcfg,
         tokens_of=lambda row: int((row != 0).sum()) or 1)
+    app.registry = batcher.registry
 
     @app.on_startup
     async def load_model() -> None:

@@ -1,5 +1,6 @@
-"""The port stands alone: tasksrunner_torch and chip_smoke.py import
-neither JAX nor anything of the JAX package ``tasksrunner``."""
+"""The port stands alone: tasksrunner_torch, chip_smoke.py and the port's
+kernel sweep (scripts/sweep_torch_flash.py) import neither JAX nor
+anything of the JAX package ``tasksrunner``."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "tasksrunner")
 
 
 def _port_sources():
-    return sorted((REPO / "tasksrunner_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "tasksrunner_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "sweep_torch_flash.py"]
 
 
 def _forbidden(module: str) -> bool:
