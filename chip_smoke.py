@@ -39,7 +39,16 @@ exit, traceback) at the first phase that does not hold:
    ``TASKSRUNNER_ADMISSION=1`` and a small token budget a flood is shed
    at the front door with 429 + Retry-After and every event is still
    stored; the launch counts set to 0 just before each host and read
-   just after;
+   just after. The burst records its spans (``TASKSRUNNER_TRACE_DB``):
+   every ``/score`` call's client → server → ``ml-request`` chain with
+   its ``ml-batch``, every event's producer → consumer, the p50 and max
+   of a call's segments (client total, dispatch, queue wait, batch
+   service) and the critical path of the slowest queue-wait exemplar's
+   trace; the loop's lag is printed for the burst and the flood, and the
+   admission score at the first shed; then ``make_app()`` served by
+   ``App.start`` answers ``GET /tasksrunner/stats`` (401 without the
+   token, a held ``/score`` counted in flight and the probe not,
+   ``requests_total`` one up per ``/score``);
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -93,6 +102,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -102,11 +112,13 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from tasksrunner_torch import (  # noqa: E402
-    _kernels, bench, flash, graft_entry, model, ring, service, train,
+    _kernels, bench, flash, graft_entry, model, ring, service, spans, train,
 )
 from tasksrunner_torch.app import App  # noqa: E402
 from tasksrunner_torch.client import http_request  # noqa: E402
 from tasksrunner_torch.hosting import InProcHost  # noqa: E402
+from tasksrunner_torch.metrics import metrics  # noqa: E402
+from tasksrunner_torch.probes import LAG_GAUGE  # noqa: E402
 from tasksrunner_torch.pubsub import InMemoryBroker  # noqa: E402
 from tasksrunner_torch.state import InMemoryStateStore  # noqa: E402
 from tasksrunner_torch.mesh import Mesh  # noqa: E402
@@ -626,10 +638,11 @@ def phase_forward() -> None:
         del params
 
 
-async def _http(port: int, method: str, path: str, body: bytes = b""):
+async def _http(port: int, method: str, path: str, body: bytes = b"",
+                headers: dict | None = None):
     """One HTTP/1.1 request to 127.0.0.1: (status, headers, body)."""
     return await asyncio.wait_for(
-        http_request("127.0.0.1", port, method, path, body=body), 120)
+        http_request("127.0.0.1", port, method, path, headers=headers, body=body), 120)
 
 
 async def _serve(n_requests: int) -> dict:
@@ -727,6 +740,9 @@ WARMUP_EVENTS = 8
 FLOOD_CLIENTS, FLOOD_MAX_TOKENS = 32, 64
 RUNTIME_CONFIDENCE_TOL = 1e-3
 PUBSUB, TOPIC = "taskspubsub", "tasksavedtopic"
+# the stats part: the API token it sets, and the batcher's window, which
+# holds a lone /score in the queue long enough to be seen in flight
+STATS_TOKEN, STATS_WINDOW_MS = "smoke-token", 250
 
 
 class TimedStore(InMemoryStateStore):
@@ -795,9 +811,133 @@ class _Runtime:
         return reply.json()
 
 
+class LagWatch:
+    """Every value the loop's lag probe writes to ``event_loop_lag_seconds``
+    while the watch runs (the gauge read every 10 ms), and the value it
+    held when the watch began (the probe's last, perhaps older)."""
+
+    def __init__(self) -> None:
+        self.at_start = metrics.get(LAG_GAUGE)
+        self.updates: list[float] = []
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def _run(self) -> None:
+        last = self.at_start
+        while True:
+            await asyncio.sleep(0.01)
+            value = metrics.get(LAG_GAUGE)
+            if value != last:
+                self.updates.append(value)
+                last = value
+
+    async def stop(self) -> dict:
+        self._task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await self._task
+        return {"max_s": max(self.updates, default=None), "updates": len(self.updates),
+                "at_start_s": self.at_start}
+
+
+@contextlib.contextmanager
+def timed_batch_probs():
+    """Times every ``service.batch_probs`` call (a batch's forward,
+    softmax and device-to-host copy, in the batcher's worker thread) in
+    the block: the part of a batch's ``ml-batch`` span spent computing,
+    the rest being the hand-off to the thread and back to the loop."""
+    real, seconds = service.batch_probs, []
+
+    def timed(*args, **kwargs):
+        started = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - started)
+
+    service.batch_probs = timed
+    try:
+        yield seconds
+    finally:
+        service.batch_probs = real
+
+
+def _p50_max_ms(values: list[float]) -> dict:
+    ms = sorted(1e3 * v for v in values)
+    return {"p50": statistics.median(ms), "max": ms[-1]}
+
+
+def _burst_traces(db: str, registry, batch_probs_s: list[float], since: float) -> dict:
+    """The burst's spans, read back with the port's readers: every
+    ``/score`` call is a client span with one ``POST /score`` server span
+    under it, and under that one ``ml-request`` naming a recorded
+    ``ml-batch``; every event is a producer span with a consumer span
+    under it that scored it. Returns the p50 and max of a call's segments
+    and the critical path of the slowest queue-wait exemplar's trace;
+    and over the batches run from ``since`` (unix time) on, their
+    ``ml-batch`` spans beside the ``batch_probs`` calls timed then."""
+    rows = spans.trace_spans(db, "")  # every trace in the file
+    by_trace: dict[str, list[dict]] = {}
+    for row in rows:
+        row["attrs"] = json.loads(row["attrs"])
+        by_trace.setdefault(row["trace_id"], []).append(row)
+    batches = {r["trace_id"]: r for r in rows if r["name"] == "ml-batch"}
+
+    def under(parent: dict, kind: str, name: str) -> list[dict]:
+        return [r for r in by_trace[parent["trace_id"]] if r["parent_id"] == parent["span_id"]
+                and r["kind"] == kind and r["name"] == name]
+
+    segments = {"client_total": [], "dispatch": [], "queue_wait": [], "batch_service": []}
+    calls = [r for r in rows if r["kind"] == "client"
+             and r["name"] == "invoke priority-scorer/score"]
+    check(len(calls) == RUNTIME_REQUESTS,
+          f"{len(calls)} /score client spans, not {RUNTIME_REQUESTS}")
+    for call in calls:
+        server = under(call, "server", "POST /score")
+        check(len(server) == 1 and server[0]["status"] == call["status"] == 200,
+              f"/score trace {call['trace_id']}: server spans {server}")
+        request = under(server[0], "internal", "ml-request")
+        check(len(request) == 1 and request[0]["attrs"]["batch_trace"] in batches,
+              f"/score trace {call['trace_id']}: ml-request spans {request}")
+        segments["client_total"].append(call["duration"])
+        segments["dispatch"].append(server[0]["duration"] - request[0]["duration"])
+        segments["queue_wait"].append(request[0]["attrs"]["queue_wait"])
+        segments["batch_service"].append(batches[request[0]["attrs"]["batch_trace"]]["duration"])
+    producers = [r for r in rows if r["kind"] == "producer"]
+    check(len(producers) == WARMUP_EVENTS + RUNTIME_EVENTS,
+          f"{len(producers)} producer spans, not {WARMUP_EVENTS + RUNTIME_EVENTS}")
+    for producer in producers:
+        consumers = under(producer, "consumer", "POST /on-task-saved")
+        check(producer["name"] == f"publish {PUBSUB}/{TOPIC}" and any(
+            c["status"] == 200 and under(c, "internal", "ml-request") for c in consumers),
+              f"event trace {producer['trace_id']}: consumers {consumers}")
+    burst_batches = [b["duration"] for b in batches.values() if b["start"] >= since]
+    check(len(burst_batches) == len(batch_probs_s),
+          f"{len(burst_batches)} ml-batch spans, {len(batch_probs_s)} batch_probs calls")
+    exemplars = [e for series in registry.snapshot_histograms()["ml_queue_wait_seconds"]["series"]
+                 for e in series["exemplars"]]
+    check(bool(exemplars), "no ml_queue_wait_seconds exemplar")
+    trace_id, wait, _ = max(exemplars, key=lambda e: e[1])
+    path = spans.critical_path(spans.trace_spans(db, trace_id))
+    check(bool(path), f"the exemplar's trace {trace_id} has no spans")
+    return {"spans": len(rows), "score_calls": len(calls), "events": len(producers),
+            "segments_ms": {name: _p50_max_ms(v) for name, v in segments.items()},
+            "burst_batches_ms": {"ml_batch": _p50_max_ms(burst_batches),
+                                 "batch_probs": _p50_max_ms(batch_probs_s),
+                                 "batches": len(burst_batches),
+                                 "batch_probs_calls": len(batch_probs_s)},
+            "slowest_exemplar": {
+                "trace_id": trace_id, "queue_wait_ms": 1e3 * wait,
+                "critical_path": [
+                    {"name": hop["name"], "kind": hop["kind"], "ms": 1e3 * hop["duration"],
+                     "self_ms": 1e3 * hop["self_time"],
+                     **({"queue_wait_ms": 1e3 * hop["queue_wait"],
+                         "service_ms": 1e3 * hop["service"]} if "queue_wait" in hop else {})}
+                    for hop in path]}}
+
+
 async def _runtime_burst() -> dict:
     """Events published before warm-up ends, then a burst of events and
-    ``POST /score`` calls for the same tasks."""
+    ``POST /score`` calls for the same tasks, its spans recorded into
+    ``TASKSRUNNER_TRACE_DB`` and read back once the host has stopped."""
     rt = _Runtime()
     await rt.start()
     try:
@@ -809,14 +949,18 @@ async def _runtime_burst() -> dict:
         check(declined_warm.get(503, 0) >= 1 and set(declined_warm) == {503},
               f"warm-up deliveries declined {declined_warm}")
 
+        lag = LagWatch()
         rt.published.clear()
         tasks = [_saved_task("task", i) for i in range(RUNTIME_EVENTS)]
-        sync = [asyncio.ensure_future(rt.call("POST", "score", task))
-                for task in tasks[:RUNTIME_REQUESTS]]
-        for task in tasks:
-            await rt.publish(task)
-        replies = await asyncio.wait_for(asyncio.gather(*sync), 60)
-        burst = await rt.all_stored()
+        since = time.time()
+        with timed_batch_probs() as batch_probs_s:
+            sync = [asyncio.ensure_future(rt.call("POST", "score", task))
+                    for task in tasks[:RUNTIME_REQUESTS]]
+            for task in tasks:
+                await rt.publish(task)
+            replies = await asyncio.wait_for(asyncio.gather(*sync), 60)
+            burst = await rt.all_stored()
+        lag = await lag.stop()
         worst = 0.0
         for task, reply in zip(tasks, replies):
             check(reply.status == 200, f"/score answered {reply.status}: {reply.body!r}")
@@ -830,12 +974,15 @@ async def _runtime_burst() -> dict:
         check(stored.status == 200 and stored.json()["priority"] in service.PRIORITY_LABELS,
               f"GET /scores answered {stored.status}")
         check((await rt.call("GET", "scores/absent")).status == 404, "GET /scores/absent")
-        return {"warmup_latency_ms": warm, "burst_latency_ms": burst,
-                "nacks": {str(k): v for k, v in rt.host.declined.items()},
-                "score_requests": RUNTIME_REQUESTS, "max_abs_err_confidence": worst,
-                "stats": await rt.stats()}
+        result = {"warmup_latency_ms": warm, "burst_latency_ms": burst,
+                  "nacks": {str(k): v for k, v in rt.host.declined.items()},
+                  "score_requests": RUNTIME_REQUESTS, "max_abs_err_confidence": worst,
+                  "event_loop_lag": lag, "stats": await rt.stats()}
     finally:
         await rt.host.stop()
+        spans.close_spans()
+    return {**result, "traces": _burst_traces(os.environ["TASKSRUNNER_TRACE_DB"],
+                                              rt.scorer.registry, batch_probs_s, since)}
 
 
 async def _runtime_admission() -> dict:
@@ -849,7 +996,9 @@ async def _runtime_admission() -> dict:
     await rt.start()
     try:
         await asyncio.wait_for(rt.host.wait_ready(), 600)
+        lag = LagWatch()
         shed: list[dict] = []
+        first_shed: dict = {}
         deadline = time.monotonic() + 15
 
         async def client(i: int) -> int:
@@ -858,6 +1007,9 @@ async def _runtime_admission() -> dict:
             while time.monotonic() < deadline:
                 reply = await rt.call("POST", "score", task)
                 if reply.status == 429:
+                    if not first_shed:
+                        first_shed.update({name: metrics.get(name) for name in (
+                            "admission_saturation", LAG_GAUGE)})
                     # nothing yields between these calls: the gate is
                     # in the state that answered the 429
                     health = await rt.call("GET", "healthz")
@@ -885,25 +1037,88 @@ async def _runtime_admission() -> dict:
             check(seen["stats"] == 429 and seen["stats_retry_after"] is not None,
                   f"/ml/stats answered {seen['stats']} while shedding")
         stored = await rt.all_stored(seconds=60)
+        lag = await lag.stop()
+        # while it sheds, the score it last published is at least the
+        # exit ratio (else the gate would have reopened)
+        check(first_shed.get("admission_saturation", 0.0) >= 0.75,
+              f"admission_saturation at the first shed: {first_shed}")
         await _until(lambda: not rt.scorer.admission.shedding, 10, "the gate did not reopen")
         return {"latency_ms": stored, "flood_clients": FLOOD_CLIENTS,
                 "flood_served": sum(served), "shed_429": len(shed),
                 "retry_after": sorted({s["retry_after"] for s in shed}),
                 "nacks": {str(k): v for k, v in rt.host.declined.items()},
+                "event_loop_lag": lag, "at_first_shed": first_shed,
                 "stats": await rt.stats()}
     finally:
         await rt.host.stop()
+
+
+async def _runtime_stats() -> dict:
+    """``make_app()`` served by ``App.start``: ``GET /tasksrunner/stats``
+    answers 401 without the token; a ``/score`` held in the batcher's
+    window is counted in flight and the probe never is; ``requests_total``
+    rises by one per ``/score``."""
+    app = service.make_app()
+    port = await app.start("127.0.0.1", 0)
+    token = {"tr-api-token": STATS_TOKEN}
+
+    async def stats() -> dict:
+        status, _, body = await _http(port, "GET", "/tasksrunner/stats", headers=token)
+        check(status == 200, f"/tasksrunner/stats answered {status}: {body!r}")
+        return json.loads(body)
+
+    async def score(i: int) -> None:
+        status, _, body = await _http(port, "POST", "/score",
+                                      json.dumps(_saved_task("stats", i)).encode())
+        check(status == 200, f"/score answered {status}: {body!r}")
+
+    try:
+        await asyncio.wait_for(app.wait_ready(), 600)
+        status, _, _ = await _http(port, "GET", "/tasksrunner/stats")
+        check(status == 401, f"/tasksrunner/stats without the token answered {status}")
+        before = await stats()
+        check(before["inflight"] == 0 and await stats() == before,
+              f"the stats probe counted itself: {before}")
+        held = asyncio.ensure_future(score(0))
+        deadline = time.monotonic() + 5
+        while (seen := await stats())["inflight"] == 0:
+            check(time.monotonic() < deadline and not held.done(),
+                  "a /score held in the batcher's window was never seen in flight")
+            await asyncio.sleep(0.005)
+        check(seen == {"inflight": 1, "requests_total": before["requests_total"] + 1},
+              f"one /score in flight, the probe said {seen}")
+        await held
+        totals = [(await stats())["requests_total"]]
+        for i in range(1, 5):
+            await score(i)
+            now = await stats()
+            check(now == {"inflight": 0, "requests_total": totals[-1] + 1},
+                  f"after /score {i}: {now}, before it {totals[-1]}")
+            totals.append(now["requests_total"])
+        check(totals[0] == before["requests_total"] + 1, f"requests_total {totals}")
+        ml = json.loads((await _http(port, "GET", "/ml/stats"))[2])
+        return {"before": before, "in_flight_seen": seen, "requests_total": totals,
+                "stats": ml}
+    finally:
+        await app.stop()
 
 
 def phase_runtime(smi: str) -> int:
     """The scorer on the port's runtime: returns B1's launches."""
     cards = torch.cuda.device_count()
     total = 0
+    trace_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-traces-")
     for name, run, env in (
-            ("burst", _runtime_burst, {}),
+            # every queue wait is a candidate exemplar (the threshold 0)
+            ("burst", _runtime_burst,
+             {"TASKSRUNNER_TRACE_DB": os.path.join(trace_dir.name, "burst.db"),
+              "TASKSRUNNER_SLOW_THRESHOLD_SECONDS": "0"}),
             ("admission", _runtime_admission,
              {"TASKSRUNNER_ADMISSION": "1",
-              "TASKSRUNNER_ML_MAX_TOKENS": str(FLOOD_MAX_TOKENS)})):
+              "TASKSRUNNER_ML_MAX_TOKENS": str(FLOOD_MAX_TOKENS)}),
+            ("stats", _runtime_stats,
+             {"TASKSRUNNER_API_TOKEN": STATS_TOKEN,
+              "TASKSRUNNER_ML_MAX_DELAY_MS": str(STATS_WINDOW_MS)})):
         os.environ.update(env)
         try:
             reset_counts()
@@ -926,6 +1141,7 @@ def phase_runtime(smi: str) -> int:
             check(result["shed_429"] >= 1 and result["nacks"].get("429", 0) >= 1,
                   f"the flood was not shed at the front door: {result}")
         total += launched["flash_fwd"]
+    trace_dir.cleanup()
     return total
 
 

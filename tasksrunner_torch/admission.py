@@ -11,13 +11,17 @@ request but ``/healthz`` and ``/tasksrunner/*`` with 429 and a
 only when the score falls below 0.75 of the threshold, so the gate does
 not flap at 1.0.
 
-The signals: the app's in-flight requests over
-``TASKSRUNNER_ADMISSION_MAX_INFLIGHT`` (0 turns it off), and every ratio
-a subsystem registered with :func:`register_signal` (the scorer's
-batcher registers its tokens in flight). The JAX controller also
-samples event-loop lag and the state and broker write-queue depths;
-those come from runtime parts the port does not host (its lag probe,
-its sqlite stores and brokers), so they are left out here.
+The signals, each a ratio: the event loop's lag
+(``event_loop_lag_seconds``, from :mod:`tasksrunner_torch.probes`) over
+``TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS`` (0.25); the worst write-queue
+depth (the gauges :data:`QUEUE_GAUGES`, under any labels) over
+``TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH`` (512); the app's in-flight
+requests over ``TASKSRUNNER_ADMISSION_MAX_INFLIGHT`` (64); and every
+ratio a subsystem registered with :func:`register_signal` (the scorer's
+batcher registers its tokens in flight). A threshold of 0 turns its
+signal off. Nothing in the port sets the queue gauges (it hosts no
+sqlite store or broker); the signal is there so that the same gauges
+give the same score as in the JAX package.
 
 Off unless ``TASKSRUNNER_ADMISSION`` is on: :meth:`AdmissionController.from_env`
 returns None and the front door tests ``admission is not None`` and
@@ -33,13 +37,19 @@ import math
 from typing import Callable
 
 from tasksrunner_torch.envflag import env_flag, env_number
-from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.metrics import MetricsRegistry, metrics as default_metrics
+from tasksrunner_torch.probes import LAG_GAUGE
 
 logger = logging.getLogger(__name__)
+
+#: write-queue depth gauges; the worst series under any labels counts
+QUEUE_GAUGES = ("state_write_queue_depth", "broker_publish_queue_depth")
 
 SAMPLE_INTERVAL = 0.25
 #: shedding stops only below this fraction of the entry threshold
 EXIT_RATIO = 0.75
+DEFAULT_MAX_LAG_SECONDS = 0.25
+DEFAULT_MAX_QUEUE_DEPTH = 512
 DEFAULT_MAX_INFLIGHT = 64
 MAX_RETRY_AFTER_SECONDS = 30
 
@@ -64,13 +74,20 @@ class AdmissionController:
 
     The front door reads :attr:`shedding`, a plain attribute, and when
     it is set, :meth:`retry_after_seconds`. :meth:`start` runs the
-    sampler as an asyncio task. The gauges go to the process-wide
-    :data:`~tasksrunner_torch.metrics.metrics`."""
+    sampler as an asyncio task. The signals' gauges are read from, and
+    the controller's own written to, ``registry``: the process-wide
+    :data:`~tasksrunner_torch.metrics.metrics` unless one is given."""
 
-    def __init__(self, *, max_inflight: float = DEFAULT_MAX_INFLIGHT,
-                 inflight: Callable[[], int] | None = None) -> None:
+    def __init__(self, *, max_lag_seconds: float = DEFAULT_MAX_LAG_SECONDS,
+                 max_queue_depth: float = DEFAULT_MAX_QUEUE_DEPTH,
+                 max_inflight: float = DEFAULT_MAX_INFLIGHT,
+                 inflight: Callable[[], int] | None = None,
+                 registry: MetricsRegistry | None = None) -> None:
+        self.max_lag_seconds = max_lag_seconds
+        self.max_queue_depth = max_queue_depth
         self.max_inflight = max_inflight
         self.inflight = inflight
+        self.registry = registry if registry is not None else default_metrics
         self.shedding = False
         self.score = 0.0
         self._task: asyncio.Task | None = None
@@ -78,21 +95,32 @@ class AdmissionController:
 
     @classmethod
     def from_env(cls, *, inflight: Callable[[], int] | None = None,
-                 ) -> AdmissionController | None:
+                 registry: MetricsRegistry | None = None) -> AdmissionController | None:
         """None unless ``TASKSRUNNER_ADMISSION`` is on."""
         if not env_flag("TASKSRUNNER_ADMISSION", default=False):
             return None
-        return cls(max_inflight=env_number("TASKSRUNNER_ADMISSION_MAX_INFLIGHT",
-                                           DEFAULT_MAX_INFLIGHT),
-                   inflight=inflight)
+        return cls(
+            max_lag_seconds=env_number("TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS",
+                                       DEFAULT_MAX_LAG_SECONDS),
+            max_queue_depth=env_number("TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",
+                                       DEFAULT_MAX_QUEUE_DEPTH),
+            max_inflight=env_number("TASKSRUNNER_ADMISSION_MAX_INFLIGHT",
+                                    DEFAULT_MAX_INFLIGHT),
+            inflight=inflight, registry=registry)
 
     def sample(self) -> float:
         """Recompute the score and apply the hysteresis; the sampler
         calls it every :data:`SAMPLE_INTERVAL` seconds, a test may call
         it at once."""
         score = 0.0
+        if self.max_lag_seconds > 0:
+            score = max(score, self.registry.get(LAG_GAUGE) / self.max_lag_seconds)
+        if self.max_queue_depth > 0:
+            for name in QUEUE_GAUGES:
+                for depth in self.registry.gauge_values(name):
+                    score = max(score, depth / self.max_queue_depth)
         if self.max_inflight > 0 and self.inflight is not None:
-            score = self.inflight() / self.max_inflight
+            score = max(score, self.inflight() / self.max_inflight)
         for name, fn in list(_EXTRA_SIGNALS.items()):
             try:
                 score = max(score, float(fn()))
@@ -116,8 +144,8 @@ class AdmissionController:
         return max(1, min(MAX_RETRY_AFTER_SECONDS, math.ceil(self.score)))
 
     def _publish(self) -> None:
-        metrics.set_gauge("admission_state", 1.0 if self.shedding else 0.0)
-        metrics.set_gauge("admission_saturation", self.score)
+        self.registry.set_gauge("admission_state", 1.0 if self.shedding else 0.0)
+        self.registry.set_gauge("admission_saturation", self.score)
 
     def start(self) -> None:
         if self._task is None or self._task.done():

@@ -13,7 +13,16 @@ of ``tasksrunner/app.py`` and of its HTTP adapter
   with its CloudEvents envelope removed.
 * ``/tasksrunner/healthz`` answers 204 whatever the app registers, and
   ``/healthz`` answers 204 unless the app registers its own.
-* An incoming ``traceparent`` opens a trace scope around the handler.
+* ``GET /tasksrunner/stats`` answers ``{"inflight", "requests_total"}``,
+  what an autoscaler's ``http-concurrency`` rule polls: the probe is not
+  counted as load, is never shed, and needs the ``tr-api-token`` header
+  when ``TASKSRUNNER_API_TOKEN`` is set (401 without it).
+* ``GET /openapi.json`` is an OpenAPI 3.1 document of the HTTP routes.
+* An incoming ``traceparent`` (and ``baggage``) opens a trace scope
+  around the handler. With spans recorded, each routed request records
+  one span around its handler, ``f"{METHOD} {path}"`` with the response
+  status: kind ``consumer`` for a subscription's route, ``server``
+  otherwise, as the JAX ``App`` names them.
 * With an :class:`~tasksrunner_torch.admission.AdmissionController`
   (``TASKSRUNNER_ADMISSION``) that is shedding, every path but
   ``/healthz`` and ``/tasksrunner/*`` is answered 429 + ``Retry-After``
@@ -26,7 +35,8 @@ of ``tasksrunner/app.py`` and of its HTTP adapter
 server of :meth:`App.start`, a sidecar's deliveries over it, and an
 in-process host. :meth:`App.start` listens first and runs the startup
 hooks in the background, so a route can answer "not ready" while a slow
-startup (the model's warm-up) runs. Each HTTP connection carries one
+startup (the model's warm-up) runs; it also runs the loop's lag probe
+(:mod:`tasksrunner_torch.probes`). Each HTTP connection carries one
 request and is closed after the response.
 """
 
@@ -36,20 +46,26 @@ import asyncio
 import http
 import json
 import logging
+import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
 from tasksrunner_torch import cloudevents, spans
 from tasksrunner_torch.admission import AdmissionController
-from tasksrunner_torch.client import AppClient
+from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, AppClient
 from tasksrunner_torch.metrics import MetricsRegistry, metrics
-from tasksrunner_torch.tracing import TRACEPARENT_HEADER, ensure_trace, trace_scope
+from tasksrunner_torch.probes import EventLoopLagProbe
+from tasksrunner_torch.tracing import (
+    BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope,
+)
 
 logger = logging.getLogger(__name__)
 
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 1024 * 1024
 SUBSCRIBE_PATHS = ("/dapr/subscribe", "/tasksrunner/subscribe")
+STATS_PATH = "/tasksrunner/stats"
 
 
 @dataclass
@@ -122,11 +138,24 @@ def _match(segments: list[str], path: str) -> dict[str, str] | None:
     return params
 
 
+class _Route:
+    __slots__ = ("method", "path", "handler", "kind", "segments")
+
+    def __init__(self, method: str, path: str, handler: Handler, kind: str) -> None:
+        self.method = method
+        self.path = path
+        self.handler = handler
+        #: "http", or "subscription" for a topic's delivery route
+        self.kind = kind
+        self.segments = _segments(path)
+
+
 class App:
     def __init__(self, app_id: str) -> None:
         self.app_id = app_id
-        self._routes: dict[tuple[str, str], Handler] = {}
-        self._param_routes: list[tuple[str, list[str], Handler]] = []
+        #: every route in registration order; exact paths also by (method, path)
+        self._table: list[_Route] = []
+        self._routes: dict[tuple[str, str], _Route] = {}
         #: the subscription document: {"pubsubname", "topic", "route"} each
         self.subscriptions: list[dict[str, str]] = []
         self._startup: list[Callable[[], Awaitable[None]]] = []
@@ -137,19 +166,23 @@ class App:
         self.client = AppClient.http()
         #: set by :meth:`begin` when ``TASKSRUNNER_ADMISSION`` is on
         self.admission: AdmissionController | None = None
-        #: requests being dispatched (admission's in-flight signal)
+        #: requests being dispatched (admission's in-flight signal) and
+        #: requests dispatched so far, both served at GET /tasksrunner/stats
         self.inflight = 0
+        self.requests_total = 0
+        #: the loop's lag probe while :meth:`start` serves the app
+        self._lag_probe: EventLoopLagProbe | None = None
         #: the app's own metrics, where it keeps any (the scorer: its batcher's)
         self.registry: MetricsRegistry | None = None
 
     # -- registration ----------------------------------------------------
 
-    def route(self, method: str, path: str) -> Callable[[Handler], Handler]:
+    def route(self, method: str, path: str, *, kind: str = "http") -> Callable[[Handler], Handler]:
         def register(fn: Handler) -> Handler:
-            if "{" in path:
-                self._param_routes.append((method, _segments(path), fn))
-            else:
-                self._routes[(method, path)] = fn
+            route = _Route(method, path, fn, kind)
+            self._table.append(route)
+            if "{" not in path:
+                self._routes[(method, path)] = route
             return fn
         return register
 
@@ -163,7 +196,7 @@ class App:
         """Deliveries of ``topic`` on ``pubsub`` come to ``POST route``."""
         def register(fn: Handler) -> Handler:
             self.subscriptions.append({"pubsubname": pubsub, "topic": topic, "route": route})
-            return self.post(route)(fn)
+            return self.route("POST", route, kind="subscription")(fn)
         return register
 
     def on_startup(self, fn: Callable[[], Awaitable[None]]):
@@ -177,10 +210,12 @@ class App:
     # -- lifecycle -------------------------------------------------------
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        """Listen on ``host:port`` (0 picks a free port), :meth:`begin`,
-        and return the bound port."""
+        """Listen on ``host:port`` (0 picks a free port), start the loop's
+        lag probe, :meth:`begin`, and return the bound port."""
         self._server = await asyncio.start_server(
             self._serve_connection, host, port, limit=MAX_HEADER_BYTES)
+        self._lag_probe = EventLoopLagProbe()
+        self._lag_probe.start()
         self.begin()
         return self._server.sockets[0].getsockname()[1]
 
@@ -212,6 +247,9 @@ class App:
             self._server.close()
             await self._server.wait_closed()
             self._server = None
+        if self._lag_probe is not None:
+            await self._lag_probe.stop()
+            self._lag_probe = None
         if self._startup_task is not None:
             self._startup_task.cancel()
             try:
@@ -235,6 +273,14 @@ class App:
         """Dispatch one request: the front door of every path. Header
         names must be lowercase."""
         path = path.split("?", 1)[0]
+        headers = headers or {}
+        if method == "GET" and path == STATS_PATH:
+            # the scaler's probe: not load, never shed, behind the token
+            required = os.environ.get(TOKEN_ENV)
+            if required and headers.get(TOKEN_HEADER) != required:
+                return Response(401, {"error": "missing or bad api token"})
+            return Response(body={"inflight": self.inflight,
+                                  "requests_total": self.requests_total})
         admission = self.admission
         if (admission is not None and admission.shedding and path != "/healthz"
                 and not path.startswith("/tasksrunner/")):
@@ -242,26 +288,46 @@ class App:
             return Response(429, {"error": "replica saturated; retry later"},
                             headers={"Retry-After": str(admission.retry_after_seconds())})
         self.inflight += 1
+        self.requests_total += 1
         try:
-            return await self._dispatch(Request(method, path, headers or {}, body))
+            return await self._dispatch(Request(method, path, headers, body))
         finally:
             self.inflight -= 1
 
-    def _find(self, method: str, path: str) -> tuple[Handler, dict[str, str]] | None:
-        handler = self._routes.get((method, path))
-        if handler is not None:
-            return handler, {}
-        for route_method, segments, fn in self._param_routes:
-            if route_method == method:
-                params = _match(segments, path)
+    def _find(self, method: str, path: str) -> tuple[_Route, dict[str, str]] | None:
+        route = self._routes.get((method, path))
+        if route is not None:
+            return route, {}
+        for route in self._table:
+            if route.method == method and "{" in route.path:
+                params = _match(route.segments, path)
                 if params is not None:
-                    return fn, params
+                    return route, params
         return None
 
     def _known_path(self, path: str) -> bool:
-        return (any(p == path for _, p in self._routes)
-                or any(_match(segments, path) is not None
-                       for _, segments, _ in self._param_routes))
+        return any(_match(route.segments, path) is not None for route in self._table)
+
+    def openapi(self) -> dict:
+        """An OpenAPI 3.1 document of the HTTP routes (subscription routes
+        left out), as the JAX ``App.openapi`` builds it."""
+        paths: dict[str, dict] = {}
+        for route in self._table:
+            if route.kind != "http":
+                continue
+            entry = paths.setdefault("/" + "/".join(route.segments), {})
+            op: dict = {"operationId": f"{route.method.lower()}_{route.handler.__name__}",
+                        "responses": {"200": {"description": "success"}}}
+            if route.handler.__doc__:
+                op["description"] = route.handler.__doc__.strip()
+            params = [{"name": seg[1:-1], "in": "path", "required": True,
+                       "schema": {"type": "string"}}
+                      for seg in route.segments if seg.startswith("{") and seg.endswith("}")]
+            if params:
+                op["parameters"] = params
+            entry[route.method.lower()] = op
+        return {"openapi": "3.1.0", "info": {"title": self.app_id, "version": "1.0.0"},
+                "paths": dict(sorted(paths.items()))}
 
     async def _dispatch(self, request: Request) -> Response:
         method, path = request.method, request.path
@@ -269,21 +335,39 @@ class App:
             return Response(body=self.subscriptions)
         if path == "/tasksrunner/healthz":
             return Response(204)
+        if method == "GET" and path == "/openapi.json":
+            return Response(body=self.openapi())
         found = self._find(method, path)
         if found is None:
             if path == "/healthz" and not self._known_path(path):
                 return Response(204)
             return Response(405 if self._known_path(path) else 404,
                             {"error": f"no route {method} {path}"})
-        handler, request.path_params = found
+        route, request.path_params = found
         traceparent = request.headers.get(TRACEPARENT_HEADER)
+        baggage = request.headers.get(BAGGAGE_HEADER)
+        recording = spans.active()
+        if traceparent is None and baggage is None and not recording:
+            return await self._call(route, request)
+        ctx = ensure_trace(traceparent, baggage)
+        # the span closes inside the callee's scope: its context never
+        # reaches the caller's task
+        with trace_scope(ctx):
+            started = time.time()
+            response = await self._call(route, request)
+            if recording:
+                spans.record_span(
+                    kind="consumer" if route.kind == "subscription" else "server",
+                    name=f"{method} {path}", status=response.status, start=started,
+                    duration=time.time() - started, trace_id=ctx.trace_id,
+                    span_id=ctx.span_id, parent_id=ctx.parent_id)
+            return response
+
+    async def _call(self, route: _Route, request: Request) -> Response:
         try:
-            if traceparent is None and not spans.active():
-                return _normalize(await handler(request))
-            with trace_scope(ensure_trace(traceparent)):
-                return _normalize(await handler(request))
+            return _normalize(await route.handler(request))
         except Exception:  # noqa: BLE001 - one request must not stop the server
-            logger.exception("%s %s failed", method, path)
+            logger.exception("%s %s failed", request.method, request.path)
             return Response(500, {"error": "internal error"})
 
     async def _serve_connection(self, reader: asyncio.StreamReader,

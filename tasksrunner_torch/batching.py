@@ -21,7 +21,9 @@
   converge on one batch), and one ``ml-request`` span in each
   submitter's trace, under its span, with the request's ``queue_wait``
   and the batch's ``service`` time, ``bucket`` and ``batch_trace``. A
-  failed batch records them with status 500.
+  failed batch records them with status 500. The queue wait of each
+  request is observed with its trace for the histogram's exemplars, and
+  the service time inside the batch's trace.
 
 The engine is model-agnostic: it schedules opaque items through a
 caller-supplied ``run_batch(items, bucket) -> results`` executed in a
@@ -31,6 +33,7 @@ worker thread, so the event loop keeps serving while a batch runs.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import time
 from dataclasses import dataclass, replace
@@ -40,7 +43,7 @@ from tasksrunner_torch import spans
 from tasksrunner_torch.envflag import env_number, env_str
 from tasksrunner_torch.errors import SaturatedError
 from tasksrunner_torch.metrics import MetricsRegistry
-from tasksrunner_torch.tracing import TraceContext, current_trace, hex8
+from tasksrunner_torch.tracing import TraceContext, current_trace, hex8, trace_scope
 
 logger = logging.getLogger(__name__)
 
@@ -257,25 +260,32 @@ class MicroBatcher:
         label = str(bucket)
         wall = time.time()
         waits = [time.monotonic() - p.enqueued for p in batch]
-        self.registry.observe("ml_batch_size", float(len(batch)))
-        self.registry.observe_many("ml_queue_wait_seconds", waits, bucket=label)
-        started = time.monotonic()
-        try:
-            results = await asyncio.to_thread(
-                self._run_batch, [p.item for p in batch], bucket)
-        except Exception as exc:
-            logger.exception("inference batch of %d (bucket %d) failed",
-                             len(batch), bucket)
-            self._record_spans(batch, waits, bucket, wall,
-                               time.monotonic() - started, 500)
-            self._account_done(batch)
-            for p in batch:
-                if not p.future.done():
-                    p.future.set_exception(exc)
-            return
-        service = time.monotonic() - started
-        self.registry.observe("ml_infer_latency_seconds", service, bucket=label)
-        self._record_spans(batch, waits, bucket, wall, service, 200)
+        # the batch is its own trace root (many request traces converge
+        # on it); each request's ml-request span names it
+        batch_ctx = TraceContext.new() if spans.active() else None
+        with trace_scope(batch_ctx) if batch_ctx is not None else contextlib.nullcontext():
+            self.registry.observe("ml_batch_size", float(len(batch)))
+            self.registry.observe_many(
+                "ml_queue_wait_seconds", waits, bucket=label,
+                traces=[p.ctx.trace_id if p.ctx is not None else None for p in batch])
+            started = time.monotonic()
+            try:
+                results = await asyncio.to_thread(
+                    self._run_batch, [p.item for p in batch], bucket)
+            except Exception as exc:
+                logger.exception("inference batch of %d (bucket %d) failed",
+                                 len(batch), bucket)
+                self._record_spans(batch, waits, bucket, batch_ctx, wall,
+                                   time.monotonic() - started, 500)
+                self._account_done(batch)
+                for p in batch:
+                    if not p.future.done():
+                        p.future.set_exception(exc)
+                return
+            service = time.monotonic() - started
+            # inside the batch's scope: a slow batch's exemplar is its trace
+            self.registry.observe("ml_infer_latency_seconds", service, bucket=label)
+            self._record_spans(batch, waits, bucket, batch_ctx, wall, service, 200)
         self.registry.inc("ml_batches_total", bucket=label)
         self._batch_counts[bucket] = self._batch_counts.get(bucket, 0) + 1
         self._account_done(batch)
@@ -296,13 +306,13 @@ class MicroBatcher:
                 p.future.set_result(result)
 
     def _record_spans(self, batch: list[_Pending], waits: list[float], bucket: int,
-                      wall: float, service: float, status: int) -> None:
+                      batch_ctx: TraceContext | None, wall: float, service: float,
+                      status: int) -> None:
         """One ml-batch span, its own trace, and one ml-request span in
         each submitter's trace; explicit ids throughout, since the worker
         task has no submitter's context."""
-        if not spans.active():
+        if batch_ctx is None:
             return
-        batch_ctx = TraceContext.new()
         spans.record_span(
             kind="internal", name="ml-batch", status=status, start=wall,
             duration=service, attrs={"bucket": bucket, "size": len(batch)},

@@ -4,9 +4,12 @@ A private copy of the parsing of ``tasksrunner.envflag.env_flag``, for
 the ``TASKSRUNNER_*`` names the scorer reads. Each keeps the meaning and
 default the JAX package declares for it, so one setting drives both
 packages. An undeclared ``TASKSRUNNER_*`` name is refused, as it is
-there. The runtime's ``TASKSRUNNER_TRACE_DB``, ``TASKSRUNNER_HTTP_PORT``
-and ``TASKSRUNNER_API_TOKEN`` are read with ``os.environ`` where they are
-used (``spans``, ``client``), as the JAX package reads them.
+there. The runtime's ``TASKSRUNNER_TRACE_DB``,
+``TASKSRUNNER_TRACE_RETENTION_SECONDS``,
+``TASKSRUNNER_SLOW_THRESHOLD_SECONDS``, ``TASKSRUNNER_HTTP_PORT`` and
+``TASKSRUNNER_API_TOKEN`` are read with ``os.environ`` where they are
+used (``spans``, ``metrics``, ``client``, ``app``), as the JAX package
+reads them.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ DECLARED = frozenset({
     "TASKSRUNNER_ML_MAX_TOKENS",   # int
     "TASKSRUNNER_ADMISSION",       # bool, off: shed with 429 when saturated
     "TASKSRUNNER_ADMISSION_MAX_INFLIGHT",  # int, 64: in-flight requests at score 1.0
+    "TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS",  # float, 0.25: event-loop lag at score 1.0
+    "TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",  # int, 512: write-queue depth at score 1.0
 })
 
 

@@ -11,10 +11,19 @@ background, as under ``App.start``), reads each
 app's subscription document and subscribes it to its brokers, one
 consumer group per app. A published payload is wrapped in a CloudEvent
 and delivered through the subscriber's own :meth:`App.handle`, with the
-publisher's ``traceparent`` carried across. As the JAX runtime does, a
-2xx acks the delivery; a 429 or 503 that carries ``Retry-After`` nacks it
-without using up an attempt, to come back after that many seconds; any
-other answer nacks it.
+publisher's ``traceparent`` (and ``baggage``) carried across. As the JAX
+runtime does, a 2xx acks the delivery; a 429 or 503 that carries
+``Retry-After`` nacks it without using up an attempt, to come back after
+that many seconds; any other answer nacks it.
+
+The host plays the runtime's part in the traces, as the JAX runtime
+does: each invoke and each publish takes one child of the caller's
+context (or of a new trace) that is both the hop's ``traceparent`` and
+its recorded span, ``invoke {app_id}/{path}`` of kind ``client`` or
+``publish {pubsub}/{topic}`` of kind ``producer``, each with a
+``target`` attribute; the callee's ``server`` or ``consumer`` span then
+hangs under it. It also runs the loop's lag probe
+(:mod:`tasksrunner_torch.probes`) while it is started.
 
 ``App.start`` still serves HTTP for the two-process layout, where a
 ``tasksrunner sidecar --app-port P`` of the JAX runtime hosts the app.
@@ -24,16 +33,20 @@ from __future__ import annotations
 
 import json
 import logging
+import time
 from typing import Any, Awaitable, Callable
 
-from tasksrunner_torch import cloudevents
+from tasksrunner_torch import cloudevents, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.app import App
 from tasksrunner_torch.client import AppClient
 from tasksrunner_torch.errors import InvocationError
+from tasksrunner_torch.probes import EventLoopLagProbe
 from tasksrunner_torch.pubsub import InMemoryBroker, Message, Nack, retry_after_from_headers
 from tasksrunner_torch.state import InMemoryStateStore
-from tasksrunner_torch.tracing import TRACEPARENT_HEADER, outgoing_headers
+from tasksrunner_torch.tracing import (
+    BAGGAGE_HEADER, TRACEPARENT_HEADER, TraceContext, current_trace, ensure_trace, hop_headers,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -47,6 +60,7 @@ class InProcHost:
         #: deliveries an app declined with 429/503 + Retry-After, by status
         self.declined: dict[int, int] = {}
         self._cancels: list[Callable[[], Awaitable[None]]] = []
+        self._lag_probe = EventLoopLagProbe()
 
     def add_app(self, app: App) -> None:
         self.apps[app.app_id] = app
@@ -63,6 +77,7 @@ class InProcHost:
         for app_id, app in self.apps.items():
             app.client = AppClient.direct(self, app_id)
             app.admission = gate
+        self._lag_probe.start()
         for app in self.apps.values():
             app.begin()
         for app_id, app in self.apps.items():
@@ -89,6 +104,7 @@ class InProcHost:
             await app.stop()
         for broker in self.brokers.values():
             await broker.aclose()
+        await self._lag_probe.stop()
 
     # -- the runtime side of the apps' clients ---------------------------
 
@@ -103,25 +119,48 @@ class InProcHost:
         if broker is None:
             raise InvocationError(f"no pubsub {pubsub!r}", status=404)
         envelope = cloudevents.wrap(data, source=source, topic=topic, pubsub_name=pubsub)
+        # one child context is both the consumers' wire parent and the
+        # producer span
+        ctx = current_trace() or TraceContext.new()
+        child = ctx.child()
+        started = time.time()
         await broker.publish(topic, envelope, metadata={
-            "content-type": cloudevents.CONTENT_TYPE, **outgoing_headers()})
+            "content-type": cloudevents.CONTENT_TYPE, **hop_headers(child)})
+        spans.record_span(kind="producer", name=f"publish {pubsub}/{topic}", status=200,
+                          start=started, duration=time.time() - started,
+                          attrs={"target": f"{pubsub}/{topic}"}, trace_id=child.trace_id,
+                          span_id=child.span_id, parent_id=ctx.span_id)
 
     async def invoke(self, app_id: str, method: str, method_path: str,
                      headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
         app = self.apps.get(app_id)
         if app is None:
             raise InvocationError(f"no app {app_id!r} in this host", status=404)
-        if TRACEPARENT_HEADER not in headers:
-            headers = {**headers, **outgoing_headers()}
-        resp = await app.handle(method, "/" + method_path.lstrip("/"), headers, body)
+        # the caller's explicit context, else the ambient one, else a new
+        # trace; one child of it is both the wire header and the client span
+        incoming = headers.get(TRACEPARENT_HEADER)
+        if incoming:
+            base = ensure_trace(incoming, headers.get(BAGGAGE_HEADER))
+        else:
+            base = current_trace() or TraceContext.new()
+        child = base.child()
+        headers = {**headers, **hop_headers(child)}
+        path = "/" + method_path.lstrip("/")
+        started = time.time()
+        resp = await app.handle(method, path, headers, body)
+        spans.record_span(kind="client", name=f"invoke {app_id}{path}", status=resp.status,
+                          start=started, duration=time.time() - started,
+                          attrs={"target": app_id}, trace_id=child.trace_id,
+                          span_id=child.span_id, parent_id=base.span_id)
         return resp.status, {k.lower(): v for k, v in resp.headers.items()}, resp.payload()
 
     def _deliverer(self, app: App, route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
         async def deliver(msg: Message) -> bool | Nack:
             headers = {"content-type": msg.metadata.get("content-type",
                                                         cloudevents.CONTENT_TYPE)}
-            if TRACEPARENT_HEADER in msg.metadata:
-                headers[TRACEPARENT_HEADER] = msg.metadata[TRACEPARENT_HEADER]
+            for name in (TRACEPARENT_HEADER, BAGGAGE_HEADER):
+                if name in msg.metadata:
+                    headers[name] = msg.metadata[name]
             resp = await app.handle("POST", route, headers, json.dumps(msg.data).encode())
             if 200 <= resp.status < 300:
                 return True

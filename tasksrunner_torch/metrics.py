@@ -11,19 +11,40 @@ A histogram keeps, per label set, its count, sum and largest value and
 the counts of the JAX package's fixed log2 buckets (:data:`DEFAULT_BOUNDS`,
 ``len(bounds) + 1`` counts, the last one past the top bound), so a
 snapshot's percentiles are those the JAX registry gives for the same
-observations. Its trace exemplars and Prometheus exposition are not
-ported.
+observations. An observation of at least
+``TASKSRUNNER_SLOW_THRESHOLD_SECONDS`` (default 0.25) made inside a trace
+keeps that trace's id as an *exemplar*: the newest :data:`MAX_EXEMPLARS`
+per series, ``[trace_id, value, unix time]`` each, so the slow tail of a
+histogram leads to its traces. :meth:`MetricsRegistry.observe` takes the
+ambient trace; ``observe_many(..., traces=[...])`` takes one trace id
+per value, for work that runs off the requests' tasks (a batch). The
+Prometheus exposition is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from bisect import bisect_left
 from typing import Any
 
+from tasksrunner_torch.tracing import current_trace
+
 #: 100 µs · 2^i for i < 21 (to about 105 s): tasksrunner/observability/metrics.py:56
 DEFAULT_BOUNDS: tuple[float, ...] = tuple(1e-4 * 2.0**i for i in range(21))
+
+ENV_SLOW_THRESHOLD = "TASKSRUNNER_SLOW_THRESHOLD_SECONDS"
+DEFAULT_SLOW_THRESHOLD = 0.25
+#: exemplars kept per series, the newest
+MAX_EXEMPLARS = 8
+
+
+def _slow_threshold() -> float:
+    try:
+        return float(os.environ.get(ENV_SLOW_THRESHOLD) or DEFAULT_SLOW_THRESHOLD)
+    except ValueError:
+        return DEFAULT_SLOW_THRESHOLD
 
 _Key = tuple[str, tuple[tuple[str, str], ...]]
 
@@ -39,13 +60,15 @@ def _flat(name: str, labels: tuple[tuple[str, str], ...]) -> str:
 
 
 class _Series:
-    __slots__ = ("count", "sum", "max", "counts")
+    __slots__ = ("count", "sum", "max", "counts", "exemplars")
 
     def __init__(self) -> None:
         self.count = 0
         self.sum = 0.0
         self.max = float("-inf")
         self.counts = [0] * (len(DEFAULT_BOUNDS) + 1)
+        #: (trace_id, value, unix time), newest last
+        self.exemplars: list[tuple[str, float, float]] = []
 
 
 class MetricsRegistry:
@@ -58,6 +81,8 @@ class MetricsRegistry:
         self._gauges: dict[_Key, float] = {}
         self._histograms: dict[_Key, _Series] = {}
         self.started_at = time.time()
+        #: an observation at least this large keeps its trace as an exemplar
+        self.slow_threshold = _slow_threshold()
 
     def inc(self, name: str, value: float = 1.0, **labels: str) -> None:
         key = _key(name, labels)
@@ -68,10 +93,35 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[_key(name, labels)] = value
 
-    def observe(self, name: str, value: float, **labels: str) -> None:
-        self.observe_many(name, [value], **labels)
+    def get(self, name: str, **labels: str) -> float:
+        """The gauge ``name`` with exactly these labels, else the counter,
+        else 0."""
+        key = _key(name, labels)
+        with self._lock:
+            if key in self._gauges:
+                return self._gauges[key]
+            return self._counters.get(key, 0.0)
 
-    def observe_many(self, name: str, values: list[float], **labels: str) -> None:
+    def gauge_values(self, name: str) -> list[float]:
+        """The values of gauge ``name`` under every label set."""
+        with self._lock:
+            return [v for (n, _), v in self._gauges.items() if n == name]
+
+    def observe(self, name: str, value: float, **labels: str) -> None:
+        """One observation; when it is slow, the ambient trace (if any)
+        becomes its exemplar."""
+        ctx = current_trace() if value >= self.slow_threshold else None
+        self._observe(name, [value], None if ctx is None else [ctx.trace_id], labels)
+
+    def observe_many(self, name: str, values: list[float], *,
+                     traces: list[str | None] | None = None, **labels: str) -> None:
+        """Several observations of one series. ``traces``, aligned with
+        ``values`` (None entries skipped), names each value's trace for
+        its exemplar; without it no exemplar is kept."""
+        self._observe(name, values, traces, labels)
+
+    def _observe(self, name: str, values: list[float], traces: list[str | None] | None,
+                 labels: dict[str, str]) -> None:
         if not values:
             return
         key = _key(name, labels)
@@ -79,6 +129,12 @@ class MetricsRegistry:
             series = self._histograms.get(key)
             if series is None:
                 series = self._histograms[key] = _Series()
+            if traces is not None:
+                for value, trace_id in zip(values, traces):
+                    if value >= self.slow_threshold and trace_id:
+                        if len(series.exemplars) >= MAX_EXEMPLARS:
+                            del series.exemplars[0]
+                        series.exemplars.append((trace_id, value, time.time()))
             series.count += len(values)
             series.sum += sum(values)
             series.max = max(series.max, max(values))
@@ -102,16 +158,18 @@ class MetricsRegistry:
 
     def snapshot_histograms(self) -> dict[str, dict[str, Any]]:
         """Each histogram as ``{"bounds": [...], "series": [{"labels",
-        "counts", "count", "sum", "max"}, ...]}``, series sorted by their
-        labels: the shape of the JAX registry's ``snapshot_histograms``
-        (without exemplars), so two snapshots diff bucket by bucket."""
+        "counts", "count", "sum", "max", "exemplars"}, ...]}``, series
+        sorted by their labels: the shape of the JAX registry's
+        ``snapshot_histograms`` (plus ``max``), so two snapshots diff
+        bucket by bucket."""
         out: dict[str, dict[str, Any]] = {}
         with self._lock:
             for (name, labels), series in sorted(self._histograms.items()):
                 hist = out.setdefault(name, {"bounds": list(DEFAULT_BOUNDS), "series": []})
                 hist["series"].append({"labels": dict(labels), "counts": list(series.counts),
                                        "count": series.count, "sum": series.sum,
-                                       "max": series.max})
+                                       "max": series.max,
+                                       "exemplars": [list(e) for e in series.exemplars]})
         return out
 
 

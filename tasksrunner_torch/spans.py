@@ -1,26 +1,32 @@
-"""Span recording into the runtime's sqlite trace file: the part of
-``tasksrunner/observability/spans.py`` the scorer's lanes use.
+"""Span recording into the runtime's sqlite trace file, and its readers:
+the part of ``tasksrunner/observability/spans.py`` the scorer's lanes use.
 
 Recording is on only once :func:`configure_spans` has been given a path,
 or found one in ``TASKSRUNNER_TRACE_DB`` (the hosts call it at start).
 Rows go into the JAX package's schema, so its ``trace_spans`` and the
-``tasksrunner traces`` CLI read the port's spans unchanged. Appending
-is a list append; a daemon thread flushes the buffer to sqlite every
-half second, off the event loop. Off, a span costs one ``if``
-(:func:`active`, or the ``None`` test in :func:`record_span`).
+``tasksrunner traces`` CLI read the port's spans unchanged, and the
+port's readers (:func:`list_traces`, :func:`trace_spans`,
+:func:`critical_path`) read the JAX package's. Appending is a list
+append; a daemon thread flushes the buffer to sqlite every half second,
+off the event loop. Off, a span costs one ``if`` (:func:`active`, or the
+``None`` test in :func:`record_span`).
 
-The JAX recorder's retention sweep and buffer-depth gauge are not
-ported: the port's spans live as long as the file the caller names.
+Spans older than ``TASKSRUNNER_TRACE_RETENTION_SECONDS`` (default 30
+days; 0 or less keeps everything) are deleted by a sweep that rides a
+flush at most once a minute. The JAX recorder's buffer-depth gauge is
+not ported.
 """
 
 from __future__ import annotations
 
 import atexit
 import json
+import logging
 import os
 import pathlib
 import sqlite3
 import threading
+import time
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS spans (
@@ -40,7 +46,22 @@ CREATE INDEX IF NOT EXISTS idx_spans_start ON spans (start);
 """
 
 ENV_VAR = "TASKSRUNNER_TRACE_DB"
+RETENTION_ENV_VAR = "TASKSRUNNER_TRACE_RETENTION_SECONDS"
+DEFAULT_RETENTION_SECONDS = 30 * 24 * 3600.0
 FLUSH_INTERVAL = 0.5
+#: seconds between two retention sweeps
+PRUNE_EVERY = 60
+
+
+def _retention_from_env() -> float:
+    raw = os.environ.get(RETENTION_ENV_VAR)
+    try:
+        return float(raw) if raw else DEFAULT_RETENTION_SECONDS
+    except ValueError:
+        # a telemetry knob must not stop an app from starting
+        logging.getLogger(__name__).warning(
+            "ignoring bad %s=%r (want seconds as a number)", RETENTION_ENV_VAR, raw)
+        return DEFAULT_RETENTION_SECONDS
 
 
 class SpanRecorder:
@@ -48,6 +69,9 @@ class SpanRecorder:
 
     def __init__(self, role: str, path: str | pathlib.Path) -> None:
         self.role = role
+        #: spans that started longer ago than this are pruned; <= 0 keeps all
+        self.retention_seconds = _retention_from_env()
+        self._last_prune = 0.0
         self.path = str(path)
         pathlib.Path(self.path).parent.mkdir(parents=True, exist_ok=True)
         #: column tuples, attrs still a dict (serialised at flush); an
@@ -86,6 +110,11 @@ class SpanRecorder:
                 "INSERT INTO spans VALUES (?,?,?,?,?,?,?,?,?,?)",
                 [row[:9] + (json.dumps(row[9], default=str) if row[9] else "{}",)
                  for row in raw])
+            now = time.time()
+            if self.retention_seconds > 0 and now - self._last_prune > PRUNE_EVERY:
+                self._conn.execute("DELETE FROM spans WHERE start < ?",
+                                   (now - self.retention_seconds,))
+                self._last_prune = now
             self._conn.commit()
 
     def close(self) -> None:
@@ -145,3 +174,97 @@ def record_span(*, kind: str, name: str, status: int | None, start: float,
     if rec is not None:
         rec.append(trace_id, span_id, parent_id, kind, name, status,
                    start, duration, attrs)
+
+
+# -- the readers ---------------------------------------------------------
+
+def _connect_ro(path: str) -> sqlite3.Connection:
+    conn = sqlite3.connect(f"file:{path}?mode=ro", uri=True, check_same_thread=False)
+    conn.row_factory = sqlite3.Row
+    return conn
+
+
+def list_traces(path: str, *, limit: int = 20) -> list[dict]:
+    """The newest ``limit`` traces: id, start, span count, wall time, the
+    roles that recorded them, and their first span as ``root``."""
+    conn = _connect_ro(path)
+    try:
+        rows = conn.execute(
+            "SELECT trace_id, MIN(start) AS started, COUNT(*) AS spans, "
+            "MAX(start + duration) - MIN(start) AS wall, "
+            "GROUP_CONCAT(DISTINCT role) AS roles "
+            "FROM spans GROUP BY trace_id ORDER BY started DESC LIMIT ?",
+            (limit,)).fetchall()
+        out = []
+        for r in rows:
+            root = conn.execute(
+                "SELECT name, role, status FROM spans WHERE trace_id = ? "
+                "ORDER BY start LIMIT 1", (r["trace_id"],)).fetchone()
+            out.append({
+                "trace_id": r["trace_id"], "started": r["started"],
+                "spans": r["spans"], "wall": r["wall"],
+                "roles": sorted((r["roles"] or "").split(",")),
+                "root": f"{root['role']}: {root['name']}" if root else "?",
+                "status": root["status"] if root else None,
+            })
+        return out
+    finally:
+        conn.close()
+
+
+def trace_spans(path: str, trace_id: str) -> list[dict]:
+    """Every span of the traces whose id starts with ``trace_id``, as
+    rows (``attrs`` still JSON text), in start order."""
+    conn = _connect_ro(path)
+    try:
+        rows = conn.execute("SELECT * FROM spans WHERE trace_id LIKE ? ORDER BY start",
+                            (trace_id + "%",)).fetchall()
+        return [dict(r) for r in rows]
+    finally:
+        conn.close()
+
+
+def critical_path(spans: list[dict]) -> list[dict]:
+    """The blame chain of one trace's spans: from the earliest root, each
+    hop descends into the child that ends last. Each hop reports its
+    ``self_time`` (its duration less its overlap with the chosen child)
+    and, where the span recorded one, its ``queue_wait`` / ``service``
+    split, so the chain's self-times add up to the root's wall time."""
+    if not spans:
+        return []
+    by_id = {s["span_id"]: s for s in spans}
+    children: dict[str, list[dict]] = {}
+    for s in spans:
+        parent = s.get("parent_id")
+        if parent and parent in by_id and parent != s["span_id"]:
+            children.setdefault(parent, []).append(s)
+    roots = [s for s in spans if not s.get("parent_id") or s["parent_id"] not in by_id]
+    node = min(roots or spans, key=lambda s: s["start"])
+    chain: list[dict] = []
+    seen: set[str] = set()
+    while node is not None and node["span_id"] not in seen:
+        seen.add(node["span_id"])
+        nxt = max(children.get(node["span_id"], []),
+                  key=lambda s: s["start"] + s["duration"], default=None)
+        attrs = node.get("attrs") or {}
+        if isinstance(attrs, str):
+            try:
+                attrs = json.loads(attrs)
+            except ValueError:
+                attrs = {}
+        end = node["start"] + node["duration"]
+        hop = {
+            "span_id": node["span_id"], "name": node["name"], "role": node["role"],
+            "kind": node["kind"], "start": node["start"], "duration": node["duration"],
+            # the overlap, not the child's duration: a child that outlives
+            # its parent must not give a negative self time
+            "self_time": node["duration"] - (
+                max(0.0, min(end, nxt["start"] + nxt["duration"]) - nxt["start"])
+                if nxt is not None else 0.0),
+        }
+        if "queue_wait" in attrs:
+            hop["queue_wait"] = attrs["queue_wait"]
+            hop["service"] = attrs.get("service", node["duration"] - attrs["queue_wait"])
+        chain.append(hop)
+        node = nxt
+    return chain

@@ -6,17 +6,26 @@ A ``traceparent`` header (``00-<32 hex trace>-<16 hex span>-<flags>``)
 arrives with a request or a delivered event; :func:`ensure_trace` adopts
 it as a new child span, and :class:`trace_scope` makes that context the
 ambient one for the handler, so a span recorded further down (the
-batcher's ``ml-request``) lands in the caller's trace. W3C baggage is
-not ported: no lane of the scorer reads it.
+batcher's ``ml-request``) lands in the caller's trace. W3C baggage
+(``baggage: k=v,k2=v2``) rides the context and every outbound hop,
+capped at :data:`MAX_BAGGAGE_ITEMS` items and :data:`MAX_BAGGAGE_BYTES`
+bytes so the header cannot grow hop over hop.
 """
 
 from __future__ import annotations
 
 import contextvars
 import secrets
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from urllib.parse import quote, unquote
 
 TRACEPARENT_HEADER = "traceparent"
+BAGGAGE_HEADER = "baggage"
+
+#: W3C baggage caps: the item count on the way in, the serialised size
+#: on the way out (entries past it are dropped, oldest insertion kept)
+MAX_BAGGAGE_ITEMS = 16
+MAX_BAGGAGE_BYTES = 1024
 
 
 def hex8() -> str:
@@ -40,13 +49,15 @@ class TraceContext:
     #: the span this one descends from: the wire parent after
     #: :func:`ensure_trace`, the local parent after :meth:`child`
     parent_id: str | None = None
+    #: key/values that ride the trace (the ``baggage`` header outbound)
+    baggage: dict = field(default_factory=dict)
 
     @classmethod
     def new(cls) -> TraceContext:
         return cls(trace_id=hex16(), span_id=hex8())
 
     @classmethod
-    def parse(cls, header: str | None) -> TraceContext | None:
+    def parse(cls, header: str | None, baggage: dict | None = None) -> TraceContext | None:
         """The context a ``traceparent`` header names, or None when it is
         absent or malformed."""
         if not header:
@@ -54,11 +65,13 @@ class TraceContext:
         parts = header.split("-")
         if len(parts) != 4 or len(parts[1]) != 32 or len(parts[2]) != 16:
             return None
-        return cls(trace_id=parts[1], span_id=parts[2], flags=parts[3])
+        return cls(trace_id=parts[1], span_id=parts[2], flags=parts[3],
+                   baggage=baggage or {})
 
     def child(self) -> TraceContext:
         return TraceContext(trace_id=self.trace_id, span_id=hex8(),
-                            flags=self.flags, parent_id=self.span_id)
+                            flags=self.flags, parent_id=self.span_id,
+                            baggage=self.baggage)
 
     @property
     def header(self) -> str:
@@ -73,14 +86,51 @@ def current_trace() -> TraceContext | None:
     return _current.get()
 
 
-def ensure_trace(incoming_header: str | None = None) -> TraceContext:
+def parse_baggage(header: str | None) -> dict:
+    """A ``baggage`` header (``k=v,k2=v2``) as a dict: malformed items
+    skipped, at most :data:`MAX_BAGGAGE_ITEMS` kept."""
+    if not header:
+        return {}
+    out: dict = {}
+    for item in header.split(","):
+        key, sep, value = item.partition("=")
+        key = key.strip()
+        if not sep or not key:
+            continue
+        out[key] = unquote(value.strip())
+        if len(out) >= MAX_BAGGAGE_ITEMS:
+            break
+    return out
+
+
+def serialize_baggage(baggage: dict) -> str | None:
+    """Baggage for the wire, stopping before the entry that would take
+    it past :data:`MAX_BAGGAGE_BYTES`; None when nothing is left."""
+    if not baggage:
+        return None
+    parts: list[str] = []
+    size = 0
+    for key, value in baggage.items():
+        item = f"{key}={quote(str(value), safe='')}"
+        if size + len(item) + 1 > MAX_BAGGAGE_BYTES:
+            break
+        parts.append(item)
+        size += len(item) + 1
+    return ",".join(parts) or None
+
+
+def ensure_trace(incoming_header: str | None = None,
+                 baggage_header: str | None = None) -> TraceContext:
     """A new child of the incoming context, or a new trace when there is
-    none (or it is malformed). Unlike the JAX function it does not
-    install the context: :class:`trace_scope` does, for a block, so an
-    in-process dispatch cannot leave the callee's context in the
-    caller's task."""
-    parent = TraceContext.parse(incoming_header)
-    return parent.child() if parent is not None else TraceContext.new()
+    none (or it is malformed), carrying the incoming baggage. Unlike the
+    JAX function it does not install the context: :class:`trace_scope`
+    does, for a block, so an in-process dispatch cannot leave the
+    callee's context in the caller's task."""
+    bag = parse_baggage(baggage_header)
+    parent = TraceContext.parse(incoming_header, bag)
+    if parent is not None:
+        return parent.child()
+    return TraceContext(trace_id=hex16(), span_id=hex8(), baggage=bag)
 
 
 class trace_scope:
@@ -99,8 +149,17 @@ class trace_scope:
         _current.reset(self._token)
 
 
+def hop_headers(ctx: TraceContext) -> dict[str, str]:
+    """The ``traceparent`` naming ``ctx`` and, when it carries any, its
+    ``baggage``: the headers of a hop whose span is ``ctx``."""
+    headers = {TRACEPARENT_HEADER: ctx.header}
+    bag = serialize_baggage(ctx.baggage)
+    if bag:
+        headers[BAGGAGE_HEADER] = bag
+    return headers
+
+
 def outgoing_headers() -> dict[str, str]:
-    """The ``traceparent`` for an outbound hop: a child of the ambient
-    context, or of a new trace when there is none."""
-    ctx = current_trace() or TraceContext.new()
-    return {TRACEPARENT_HEADER: ctx.child().header}
+    """The headers of an outbound hop: a child of the ambient context,
+    or of a new trace when there is none, with its baggage."""
+    return hop_headers((current_trace() or TraceContext.new()).child())

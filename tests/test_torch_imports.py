@@ -33,7 +33,11 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
-    assert "tasksrunner_torch.service" in loaded
+    # every module, the request path's observability among them
+    for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
+                 "tasksrunner_torch.admission", "tasksrunner_torch.spans",
+                 "tasksrunner_torch.tracing"):
+        assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

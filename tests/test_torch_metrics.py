@@ -106,5 +106,6 @@ def test_flat_snapshot_keeps_its_keys():
     assert snap["ml_queue_wait_seconds_max{bucket=8}"] == 0.004
     series = reg.snapshot_histograms()["ml_queue_wait_seconds"]["series"]
     assert series == [{"labels": {"bucket": "8"}, "counts": series[0]["counts"],
-                       "count": 2, "sum": pytest.approx(0.005), "max": 0.004}]
+                       "count": 2, "sum": pytest.approx(0.005), "max": 0.004,
+                       "exemplars": []}]
     assert sum(series[0]["counts"]) == 2

@@ -10,6 +10,7 @@
 """
 
 import asyncio
+import contextvars
 import json
 
 import numpy as np
@@ -217,3 +218,106 @@ async def test_port_ml_request_span_reads_through_jax_trace_spans(tmp_path):
     assert rows[0]["role"] == "port" and rows[0]["status"] == 200
     batch = trace_spans(db, json.loads(rows[0]["attrs"])["batch_trace"])
     assert [r["name"] for r in batch] == ["ml-batch"]
+
+
+SPAN_TASK = {"taskId": "t-span", "taskName": "trace the saved task",
+             "taskCreatedBy": "ops", "taskAssignedTo": "ops1"}
+
+
+async def _each_in_its_own_context(client) -> None:
+    """One ``/score`` invoke and one publish, each from a task of its own:
+    each starts a trace of its own on either side (the JAX runtime
+    installs a new root in its caller's context)."""
+    await asyncio.ensure_future(bounded(client.invoke_method(
+        "priority-scorer", "score", data={"taskName": SPAN_TASK["taskName"]})))
+    await asyncio.ensure_future(bounded(client.publish_event(PUBSUB, TOPIC, SPAN_TASK)))
+
+
+async def _jax_traced(db: str) -> None:
+    from tasksrunner import App as JaxApp
+    from tasksrunner import InProcCluster
+    from tasksrunner.ml.service import make_app as jax_make_app
+    from tasksrunner.observability import spans as jax_spans
+
+    recorder = jax_spans.configure_spans("jax-proc")  # from TASKSRUNNER_TRACE_DB
+    assert recorder is not None and recorder.path == db
+    cluster = InProcCluster(_jax_components())
+    cluster.add_app(jax_make_app())
+    cluster.add_app(JaxApp("some-api"))
+    try:
+        await bounded(cluster.start(), 120)
+        client = cluster.client("some-api")
+        await _each_in_its_own_context(client)
+        # read through the scorer's own client: its keys carry its prefix
+        scorer = cluster.client("priority-scorer")
+        await _poll_scores(lambda key: scorer.get_state("scores", key), [SPAN_TASK["taskId"]])
+    finally:
+        await bounded(cluster.stop())
+        recorder.close()
+        jax_spans._recorder = None
+
+
+async def _port_traced() -> None:
+    store = InMemoryStateStore("scores")
+    host = InProcHost(state_stores={"scores": store},
+                      brokers={PUBSUB: InMemoryBroker(PUBSUB, max_attempts=1)})
+    host.add_app(service.make_app(device="cpu"))
+    host.add_app(App("some-api"))
+    try:
+        await bounded(host.start())  # the apps record into TASKSRUNNER_TRACE_DB
+        await bounded(host.wait_ready())
+        await _each_in_its_own_context(host.client("some-api"))
+        await _poll_scores(store.get, [SPAN_TASK["taskId"]])
+    finally:
+        await bounded(host.stop())
+        spans.close_spans()
+
+
+def _span_shapes(db: str) -> tuple[list, dict]:
+    """Each trace's sorted (kind, name, parent's kind) of its spans, read
+    by JAX's ``trace_spans``, sorted; and {first span's name: rows}."""
+    from tasksrunner.observability.spans import list_traces, trace_spans
+
+    shapes, rows_of = [], {}
+    for trace in list_traces(db, limit=100):
+        rows = trace_spans(db, trace["trace_id"])
+        kinds = {r["span_id"]: r["kind"] for r in rows}
+        shapes.append(sorted((r["kind"], r["name"], kinds.get(r["parent_id"]))
+                             for r in rows))
+        rows_of[rows[0]["name"]] = rows
+    return sorted(shapes), rows_of
+
+
+def test_spans_of_one_score_and_one_event_match_the_jax_scorer(monkeypatch, tmp_path):
+    """The same span kinds, names and parent links from the port's scorer
+    on ``InProcHost`` as from the JAX scorer on ``InProcCluster``; and the
+    port's ``critical_path`` equal to JAX's on the port's file."""
+    from tasksrunner.observability.spans import critical_path as jax_critical_path
+
+    monkeypatch.setenv("TASKSRUNNER_ML_BUCKETS", "1")
+    jax_db, port_db = str(tmp_path / "jax.db"), str(tmp_path / "port.db")
+    # fresh contexts: no ambient trace that an earlier test in this
+    # process left installed joins the two calls into one trace
+    monkeypatch.setenv("TASKSRUNNER_TRACE_DB", jax_db)
+    contextvars.Context().run(asyncio.run, _jax_traced(jax_db))
+    monkeypatch.setenv("TASKSRUNNER_TRACE_DB", port_db)
+    contextvars.Context().run(asyncio.run, _port_traced())
+
+    want, _ = _span_shapes(jax_db)
+    got, port_rows = _span_shapes(port_db)
+    invoke = "invoke priority-scorer/score"
+    publish = f"publish {PUBSUB}/{TOPIC}"
+    batch = [("internal", "ml-batch", None)]
+    assert want == sorted([
+        [("client", invoke, None), ("internal", "ml-request", "server"),
+         ("server", "POST /score", "client")],
+        [("consumer", "POST /on-task-saved", "producer"),
+         ("internal", "ml-request", "consumer"), ("producer", publish, None)],
+        batch, batch])
+    assert got == want
+
+    for first in (invoke, publish):
+        rows = port_rows[first]
+        mine = spans.critical_path(rows)
+        assert [hop["name"] for hop in mine] == [r["name"] for r in rows]
+        assert mine == jax_critical_path(rows)
