@@ -19,6 +19,9 @@ exit, traceback) at the first phase that does not hold:
    (and its in-place read of the visiting block against rolled inputs),
    and the ring's backward step at every step of a ring of sp 4;
 4. matmul: the f32-activation product on the card against the CPU's;
+   C1: the bf16-activation product at the served and bench shapes against
+   the f32 product of the same bf16 inputs rounded once, with cuBLAS's
+   reduced-precision reduction allowed and not (at most one bf16 step);
 5. gradient: ``FlashAttention``'s gradients against autograd through
    the einsum core;
 6. ring: ``ring_attention`` at sp 2 and 4 against the dense flash
@@ -49,6 +52,23 @@ exit, traceback) at the first phase that does not hold:
    ``App.start`` answers ``GET /tasksrunner/stats`` (401 without the
    token, a held ``/score`` counted in flight and the probe not,
    ``requests_total`` one up per ``/score``);
+8b. sidecar: the scorer behind the port's own sidecar processes
+   (``python -m tasksrunner_torch sidecar``) over the sample's sqlite
+   store and broker component files, paths rewritten into a temp
+   directory, beside a publisher app's sidecar on the same broker file:
+   16 events published while the scorer's warm-up is held (each deferred
+   with 503 + Retry-After), then 48 events and 32 ``POST /score`` calls
+   through the publisher's sidecar (two sidecar hops); every event's
+   stored score, read back through ``GET /scores/{id}``, equals the
+   ``/score`` answer for its text; the store file holds every key, the
+   broker file no dead letter and no delivery charged more than one
+   attempt; then the scorer's sidecar is stopped with SIGTERM and the app
+   stopped, 16 events are published into the broker file, both restart
+   and every one is stored; last ``python -m tasksrunner_torch host``
+   answers ``/v1.0/healthz`` and one ``/score``. Prints event-to-stored,
+   two-hop ``/score`` and the restart's drain time beside the card's
+   name and power limit; launch counts set to 0 just before and read
+   just after;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -99,20 +119,25 @@ import contextlib
 import json
 import math
 import os
+import signal
+import socket
+import sqlite3
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
 from tasksrunner_torch import (  # noqa: E402
-    _kernels, bench, flash, graft_entry, model, ring, service, spans, train,
+    _kernels, bench, cli, flash, graft_entry, model, ring, service, spans, train,
 )
 from tasksrunner_torch.app import App  # noqa: E402
 from tasksrunner_torch.client import http_request  # noqa: E402
@@ -531,11 +556,42 @@ def phase_ring_bwd_kernel_vs_plain() -> float:
     return worst
 
 
+def bf16_steps(got, want):
+    """The largest |got − want| in bf16 steps, each element's step taken
+    at its magnitude or at want's rms, whichever is larger: a sum that
+    cancels to near 0 is as uncertain as f32 sums in another order make
+    it, far more than a bf16 step of its own tiny value."""
+    want = want.float()
+    mag = torch.maximum(want.abs(), want.square().mean().sqrt())
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - want).abs() / step).max().item()
+
+
+def rounded_twice(x, w, parts: int = 8):
+    """The product with its K split in ``parts``, each partial rounded to
+    bf16 and summed in bf16: what a reduced-precision reduction does."""
+    out = None
+    for xs, ws in zip(x.chunk(parts, dim=1), w.chunk(parts, dim=0)):
+        part = (xs.float() @ ws.float()).to(torch.bfloat16)
+        out = part if out is None else out + part
+    return out
+
+
+# C1's products: (m, k, n) of the served config at b 1 / 8 / 32 (m = b·32,
+# d 128, ff 512) and of the bench config at batch 32 (m 16384, d 1024, ff 4096)
+C1_SHAPES = [(32, 128, 128), (256, 128, 512), (1024, 512, 128),
+             (16384, 1024, 1024), (16384, 1024, 4096), (16384, 4096, 1024)]
+
+
 def phase_matmul() -> dict:
     """The f32-activation product on the card against the same product
     on the CPU: the repaired path keeps the f32 accumulator; a bf16
     product cast to f32 afterwards (the path before the repair) is off
-    by a bf16 rounding."""
+    by a bf16 rounding. Then C1: the bf16-activation product
+    (``model._matmul``) against the f32 product of the same bf16 inputs
+    rounded once to bf16, with cuBLAS's reduced-precision reduction
+    allowed and not: at most one bf16 step apart; a product whose partial
+    sums are rounded to bf16 must be more."""
     gen = torch.Generator(device="cpu").manual_seed(3)
     a = torch.randn(8, 32, 128, generator=gen)
     b = torch.randn(128, 512, generator=gen) / 128 ** 0.5
@@ -553,6 +609,26 @@ def phase_matmul() -> dict:
     record["ok"] = got.dtype == torch.float32 and record["rel_err"] <= 1e-5
     emit(record)
     check(record["ok"], "the f32-activation product lost its f32 accumulator")
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    steps = {}
+    try:
+        for m, k, n in C1_SHAPES:
+            x = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+            w = (torch.randn(k, n, generator=gen) / k ** 0.5).to("cuda", torch.bfloat16)
+            once = (x.float() @ w.float()).to(torch.bfloat16)  # f32 sums, one rounding
+            # the control: partial sums rounded to bf16 must be seen
+            steps[f"m{m}k{k}n{n}/rounded_twice"] = bf16_steps(rounded_twice(x, w), once)
+            for reduced in (True, False):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                got = model._matmul(x, w)
+                steps[f"m{m}k{k}n{n}/reduced_{str(reduced).lower()}"] = bf16_steps(got, once)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    c1 = {"phase": "matmul", "check": "C1", "default_flag": flag, "bf16_steps": steps,
+          "ok": all((v > 1.0) == key.endswith("rounded_twice") for key, v in steps.items())}
+    emit(c1)
+    check(c1["ok"], f"C1: a bf16 product is more than one bf16 step off, or the "
+                    f"twice-rounded control is not: {steps}")
     return record
 
 
@@ -752,9 +828,10 @@ class TimedStore(InMemoryStateStore):
         super().__init__(name)
         self.stored_at: dict[str, float] = {}
 
-    async def set(self, key, value) -> None:
-        await super().set(key, value)
+    async def set(self, key, value, *, etag=None) -> str:
+        new_etag = await super().set(key, value, etag=etag)
         self.stored_at.setdefault(key, time.monotonic())
+        return new_etag
 
 
 async def _until(predicate, seconds: float, what: str) -> None:
@@ -1143,6 +1220,317 @@ def phase_runtime(smi: str) -> int:
         total += launched["flash_fwd"]
     trace_dir.cleanup()
     return total
+
+
+# the sidecar phase: events published while the scorer warms up, then
+# a steady burst of events and two-hop /score calls, and the events
+# published while the scorer and its sidecar are down
+SIDECAR_WARMUP_EVENTS, SIDECAR_EVENTS, SIDECAR_REQUESTS, RESTART_EVENTS = 16, 48, 32, 16
+# events published one at a time to an idle subscriber, each waiting for
+# the consumer's next poll of the broker file: the gaps between them step
+# through one poll interval (50 ms), so their phases against the polls
+# spread over it instead of aliasing to one
+SIDECAR_IDLE_EVENTS, IDLE_GAP_S, POLL_INTERVAL_S = 8, 0.1, 0.05
+SAMPLE_COMPONENTS = ROOT / "samples" / "tasks_tracker" / "components"
+DELIVERED_503 = "pubsub_delivery{route=/on-task-saved,status=503}"
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _Processes:
+    """The phase's ``python -m tasksrunner_torch`` processes: each one's
+    standard error goes to a log file in the phase's directory, each is
+    waited for to print its ``ready`` line within a time limit, stopped
+    with SIGTERM (exit 0 required) and killed on any failure."""
+
+    def __init__(self, logs: Path) -> None:
+        self.logs = logs
+        self.procs: dict[str, subprocess.Popen] = {}
+
+    async def start(self, name: str, *args: str, seconds: float = 120) -> dict:
+        log = open(self.logs / f"{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, "-m", "tasksrunner_torch", "--log-level",
+                                 "warning", *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=log, text=True)
+        log.close()
+        self.procs[name] = proc
+        deadline = time.monotonic() + seconds
+        loop = asyncio.get_running_loop()
+        while True:
+            remaining = deadline - time.monotonic()
+            check(remaining > 0, f"{name} printed no ready line in {seconds} s")
+            line = await asyncio.wait_for(loop.run_in_executor(None, proc.stdout.readline),
+                                          remaining)
+            if line.startswith("ready "):
+                return dict(kv.split("=", 1) for kv in line.split()[1:])
+            check(line != "", f"{name} closed its output (exit {proc.poll()}): {self.tail(name)}")
+
+    def tail(self, name: str) -> str:
+        return (self.logs / f"{name}.log").read_text()[-3000:]
+
+    def stop(self, name: str) -> None:
+        proc = self.procs.pop(name)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            raise AssertionError(f"{name} did not stop on SIGTERM") from None
+        finally:
+            proc.stdout.close()
+        check(rc == 0, f"{name} exited {rc} on SIGTERM: {self.tail(name)}")
+
+    def kill_all(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+            proc.stdout.close()
+        self.procs.clear()
+
+
+def _write_components(root: Path, data: Path) -> None:
+    """The sample's state store and broker files with their paths
+    rewritten into ``data``: the store named ``scores`` and scoped to the
+    scorer, the broker as it is (``pubsub.redis`` without a host is the
+    sqlite broker)."""
+    root.mkdir()
+    (root / "statestore.yaml").write_text(
+        (SAMPLE_COMPONENTS / "statestore.yaml").read_text()
+        .replace("name: statestore", "name: scores")
+        .replace(".tasksrunner/statestore.db", str(data / "scores.db"))
+        .replace("- tasksmanager-backend-api", "- priority-scorer"))
+    (root / "pubsub-redis.yaml").write_text(
+        (SAMPLE_COMPONENTS / "pubsub-redis.yaml").read_text()
+        .replace(".tasksrunner/pubsub-local.db", str(data / "broker.db")))
+
+
+class _Scorer:
+    """``make_app()`` served as ``serve`` serves it, beside a sidecar
+    process of its own; its client's ``save_state`` is timed, so an
+    event's stored time is when the sidecar acknowledged its score."""
+
+    def __init__(self, procs: _Processes, sidecar_port: int, components: Path,
+                 registry: Path, name: str) -> None:
+        self.procs, self.sidecar_port, self.name = procs, sidecar_port, name
+        self.components, self.registry = components, registry
+        self.app = service.make_app()
+        self.stored_at: dict[str, float] = {}
+
+    async def start(self) -> None:
+        app_port = await cli.start_app(self.app, sidecar_port=self.sidecar_port)
+        self.app_port = app_port
+        save = self.app.client.save_state
+
+        async def timed_save(store, key, value):
+            await save(store, key, value)
+            self.stored_at.setdefault(key, time.monotonic())
+
+        self.app.client.save_state = timed_save
+        await self.procs.start(
+            self.name, "sidecar", "--app-id", "priority-scorer", "--app-port", str(app_port),
+            "--port", str(self.sidecar_port), "--components", str(self.components),
+            "--registry-file", str(self.registry))
+
+    async def stats(self) -> dict:
+        status, _, body = await _http(self.app_port, "GET", "/ml/stats")
+        check(status == 200, f"/ml/stats answered {status}")
+        return json.loads(body)
+
+    async def stop(self) -> dict:
+        """SIGTERM the sidecar, then stop the app; returns its /ml/stats."""
+        stats = await self.stats()
+        self.procs.stop(self.name)
+        await self.app.stop()
+        return stats
+
+
+async def _stored(scorer: _Scorer, published: dict[str, float], seconds: float) -> dict:
+    await _until(lambda: all(k in scorer.stored_at for k in published), seconds,
+                 f"events not stored: {sum(k in scorer.stored_at for k in published)} of "
+                 f"{len(published)}")
+    return _p50_max_ms([scorer.stored_at[k] - t for k, t in published.items()])
+
+
+def _broker_rows(path: Path) -> list[tuple]:
+    with contextlib.closing(sqlite3.connect(path)) as conn:
+        return conn.execute("SELECT msg_id, grp, attempts, done FROM deliveries").fetchall()
+
+
+def _store_keys(path: Path) -> list[str]:
+    with contextlib.closing(sqlite3.connect(path)) as conn:
+        return [row[0] for row in conn.execute("SELECT key FROM state ORDER BY key")]
+
+
+async def _sidecar_phase(data: Path) -> dict:
+    comps, registry = data / "components", data / "apps.json"
+    _write_components(comps, data)
+    procs = _Processes(data)
+    gate = threading.Event()  # holds the scorer's warm-up
+    real_init = service.init_params
+
+    def gated_init(*args, **kwargs):
+        check(gate.wait(120), "the warm-up gate was never opened")
+        return real_init(*args, **kwargs)
+
+    publisher = App("some-api")
+    scorer = None
+    service.init_params = gated_init
+    try:
+        pub_sidecar = _free_port()
+        pub_app_port = await cli.start_app(publisher, sidecar_port=pub_sidecar)
+        started = time.monotonic()
+        scorer = _Scorer(procs, _free_port(), comps, registry, "scorer-sidecar")
+        await asyncio.gather(scorer.start(), procs.start(
+            "publisher-sidecar", "sidecar", "--app-id", "some-api", "--app-port",
+            str(pub_app_port), "--port", str(pub_sidecar), "--components", str(comps),
+            "--registry-file", str(registry)))
+        processes_ready_s = time.monotonic() - started
+
+        async def publish(task: dict, published: dict) -> None:
+            published[task["taskId"]] = time.monotonic()
+            await asyncio.wait_for(publisher.client.publish_event(PUBSUB, TOPIC, task), 30)
+
+        async def score(task: dict):
+            sent = time.monotonic()
+            reply = await asyncio.wait_for(publisher.client.invoke_method(
+                "priority-scorer", "score", data=task), 60)
+            return reply, time.monotonic() - sent
+
+        # warm-up: every event meets the 503 before the model loads
+        warm = {}
+        for i in range(SIDECAR_WARMUP_EVENTS):
+            await publish(_saved_task("sc-early", i), warm)
+
+        async def delivered_503() -> float:
+            status, _, body = await _http(scorer.sidecar_port, "GET", "/v1.0/metadata")
+            check(status == 200, f"/v1.0/metadata answered {status}")
+            return json.loads(body)["metrics"].get(DELIVERED_503, 0)
+
+        deadline = time.monotonic() + 30
+        while (declined := await delivered_503()) < SIDECAR_WARMUP_EVENTS:
+            check(time.monotonic() < deadline, f"{declined} deliveries met the warm-up's 503")
+            await asyncio.sleep(0.05)
+        gate.set()
+        await asyncio.wait_for(scorer.app.wait_ready(), 600)
+        warm_ms = await _stored(scorer, warm, 60)
+
+        # steady state: events and two-hop /score calls for the same texts
+        steady = {}
+        tasks = [_saved_task("sc-task", i) for i in range(SIDECAR_EVENTS)]
+        calls = [asyncio.ensure_future(score(t)) for t in tasks[:SIDECAR_REQUESTS]]
+        for task in tasks:
+            await publish(task, steady)
+        results = await asyncio.wait_for(asyncio.gather(*calls), 120)
+        steady_ms = await _stored(scorer, steady, 120)
+        idle = {}
+        for i in range(SIDECAR_IDLE_EVENTS):
+            await asyncio.sleep(IDLE_GAP_S + i * POLL_INTERVAL_S / SIDECAR_IDLE_EVENTS)
+            await publish(_saved_task("sc-idle", i), idle)
+            await _stored(scorer, {f"sc-idle-{i}": idle[f"sc-idle-{i}"]}, 30)
+        idle_ms = sorted(1e3 * (scorer.stored_at[k] - t) for k, t in idle.items())
+        # the remaining texts, so that every stored score meets its /score answer
+        rest = [_saved_task("sc-early", i) for i in range(SIDECAR_WARMUP_EVENTS)]
+        rest += tasks[SIDECAR_REQUESTS:] + [_saved_task("sc-idle", i)
+                                           for i in range(SIDECAR_IDLE_EVENTS)]
+        results += await asyncio.wait_for(asyncio.gather(*(score(t) for t in rest)), 120)
+        worst = 0.0
+        for task, (reply, _) in zip(tasks[:SIDECAR_REQUESTS] + rest, results):
+            check(reply.status == 200, f"two-hop /score answered {reply.status}: {reply.body!r}")
+            got = await asyncio.wait_for(publisher.client.invoke_method(
+                "priority-scorer", f"scores/{task['taskId']}", http_method="GET"), 30)
+            check(got.status == 200, f"GET scores/{task['taskId']} answered {got.status}")
+            want, got = reply.json(), got.json()
+            check(got["priority"] == want["priority"],
+                  f"{task['taskId']}: stored {got} but /score answered {want}")
+            worst = max(worst, abs(got["confidence"] - want["confidence"]))
+        check(worst <= RUNTIME_CONFIDENCE_TOL, f"stored confidence off by {worst}")
+        two_hop_ms = _p50_max_ms([seconds for _, seconds in results[:SIDECAR_REQUESTS]])
+        stats_first = await scorer.stop()
+
+        # restart: events published while the scorer and its sidecar are down
+        down = {}
+        for i in range(RESTART_EVENTS):
+            await publish(_saved_task("sc-restart", i), down)
+        pending = [r for r in _broker_rows(data / "broker.db")
+                   if r[1] == "priority-scorer" and r[3] == 0]
+        check(len(pending) == RESTART_EVENTS,
+              f"the broker file holds {len(pending)} pending events, not {RESTART_EVENTS}")
+        restarted = time.monotonic()
+        scorer = _Scorer(procs, scorer.sidecar_port, comps, registry, "scorer-sidecar-2")
+        await scorer.start()
+        await asyncio.wait_for(scorer.app.wait_ready(), 600)
+        restart_ms = await _stored(scorer, down, 120)
+        drain_s = max(scorer.stored_at[k] for k in down) - restarted
+        stats_second = await scorer.stop()
+        scorer = None
+        procs.stop("publisher-sidecar")
+
+        keys = _store_keys(data / "scores.db")
+        want_keys = sorted(f"priority-scorer||{k}" for k in (*warm, *steady, *idle, *down))
+        check(keys == want_keys, f"the store file holds {len(keys)} keys, not {len(want_keys)}")
+        rows = _broker_rows(data / "broker.db")
+        check(all(r[3] == 1 for r in rows), f"not every delivery acked: {rows}")
+        # a deferral that charged an attempt would leave one above 1
+        check(all(r[2] == 1 for r in rows),
+              f"deliveries charged {sorted({r[2] for r in rows})} attempts")
+
+        # host: app and sidecar in one process on the card
+        ready = await procs.start("host", "host", "tasksrunner_torch.service:make_app",
+                                  "--components", str(comps), "--registry-file", str(registry))
+        host_sidecar = int(ready["sidecar_port"])
+        status, _, _ = await _http(host_sidecar, "GET", "/v1.0/healthz")
+        check(status == 204, f"host /v1.0/healthz answered {status}")
+        body = json.dumps(_saved_task("sc-host", 0)).encode()
+        deadline = time.monotonic() + 600
+        while (reply := await _http(host_sidecar, "POST",
+                                    "/v1.0/invoke/priority-scorer/method/score", body))[0] == 503:
+            check(time.monotonic() < deadline, "the host's scorer never warmed up")
+            await asyncio.sleep(0.25)
+        check(reply[0] == 200 and json.loads(reply[2])["priority"] in service.PRIORITY_LABELS,
+              f"host /score answered {reply[0]}: {reply[2]!r}")
+        procs.stop("host")
+        return {"processes_ready_s": processes_ready_s,
+                "warmup_503_deliveries": declined,
+                "event_to_stored_ms": {"warmup": warm_ms, "steady": steady_ms,
+                                       "idle_one_at_a_time": idle_ms, "restart": restart_ms},
+                "score_two_hop_ms": two_hop_ms, "score_calls": len(results),
+                "max_abs_err_confidence": worst, "restart_drain_s": drain_s,
+                "stored_keys": len(keys), "deliveries": len(rows), "dead_letters": 0,
+                "host_score": json.loads(reply[2]),
+                "stats": [stats_first, stats_second]}
+    finally:
+        service.init_params = real_init
+        gate.set()
+        procs.kill_all()
+        if scorer is not None:
+            await scorer.app.stop()
+        await publisher.stop()
+
+
+def phase_sidecar(smi: str) -> int:
+    """The scorer behind the port's own sidecar processes over the sqlite
+    store and broker files: returns B1's launches."""
+    cards = torch.cuda.device_count()
+    reset_counts()
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sidecar-") as data:
+        result = asyncio.run(_sidecar_phase(Path(data)))
+    launched = counts()
+    expected = sum(expected_serve_launches(stats, cards) for stats in result["stats"])
+    emit({"phase": "sidecar", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched["flash_fwd"],
+          "expected_launches": expected})
+    check(launched["flash_fwd"] == expected,
+          f"sidecar phase: flash launches {launched['flash_fwd']} != {expected}")
+    check(all(v == 0 for k, v in launched.items() if k != "flash_fwd"),
+          f"the sidecar phase launched a backward or ring kernel: {launched}")
+    return launched["flash_fwd"]
 
 
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
@@ -1712,7 +2100,7 @@ def main() -> int:
     phase_gradient()
     phase_ring()
     phase_forward()
-    launches = {"flash_fwd": phase_serve() + phase_runtime(smi)}
+    launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()

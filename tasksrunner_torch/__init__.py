@@ -26,12 +26,17 @@ each counterpart is easy to find:
   front door (admission), served over a standard-library HTTP server
 * ``service``     – ``tasksrunner/ml/service.py``: the scorer served, its
   saved-task subscription and ``GET /scores/{id}``
-* the runtime parts the scorer uses, each a standard-library copy:
-  ``hosting`` (``InProcHost``, the in-process host), ``client``
-  (``AppClient``: in-process or over HTTP to a ``tasksrunner`` sidecar),
-  ``state`` and ``pubsub`` (the in-memory store and broker),
+* the runtime the scorer is hosted on, each part a standard-library copy
+  (no aiohttp, no PyYAML): ``hosting`` (``InProcHost``, the in-process
+  host, and ``AppHost``, an app beside its sidecar), ``client``
+  (``AppClient``: in-process, beside a runtime, or over HTTP to a
+  sidecar), ``runtime`` and ``sidecar`` (the Dapr-shaped HTTP API),
+  ``component`` (component files and the driver registry), ``state``
+  and ``pubsub`` (in-memory, and the durable sqlite store and broker),
+  ``invoke`` (the app-id resolver), ``security`` (grants),
   ``admission``, ``tracing``, ``spans`` (the runtime's sqlite trace
   file) and ``cloudevents``
+* ``cli``         – ``python -m tasksrunner_torch host|serve|sidecar``
 * ``graft_entry`` – ``__graft_entry__.py``'s ``entry`` and its
   self-verifying ``dryrun_multichip`` over spawned ranks
 

@@ -19,9 +19,8 @@ depth (the gauges :data:`QUEUE_GAUGES`, under any labels) over
 requests over ``TASKSRUNNER_ADMISSION_MAX_INFLIGHT`` (64); and every
 ratio a subsystem registered with :func:`register_signal` (the scorer's
 batcher registers its tokens in flight). A threshold of 0 turns its
-signal off. Nothing in the port sets the queue gauges (it hosts no
-sqlite store or broker); the signal is there so that the same gauges
-give the same score as in the JAX package.
+signal off. The sqlite store and broker set the queue gauges, once a
+batch (``state_write_queue_depth``, ``broker_publish_queue_depth``).
 
 Off unless ``TASKSRUNNER_ADMISSION`` is on: :meth:`AdmissionController.from_env`
 returns None and the front door tests ``admission is not None`` and

@@ -36,8 +36,14 @@ server of :meth:`App.start`, a sidecar's deliveries over it, and an
 in-process host. :meth:`App.start` listens first and runs the startup
 hooks in the background, so a route can answer "not ready" while a slow
 startup (the model's warm-up) runs; it also runs the loop's lag probe
-(:mod:`tasksrunner_torch.probes`). Each HTTP connection carries one
-request and is closed after the response.
+(:mod:`tasksrunner_torch.probes`).
+
+:func:`start_server` is the one HTTP/1.1 reader, which the app and the
+sidecar (:mod:`tasksrunner_torch.sidecar`) both serve on: each
+connection carries one request and is closed after the response.
+:class:`Router` is the one route table: a path's ``{name}`` segment
+matches one segment, and a last ``{name:.*}`` segment the rest of the
+path (the sidecar's ``/v1.0/invoke/{app_id}/method/{path:.*}``).
 """
 
 from __future__ import annotations
@@ -70,19 +76,28 @@ STATS_PATH = "/tasksrunner/stats"
 
 @dataclass
 class Response:
+    """A JSON body (sent with ``Content-Type: application/json``), or
+    ``bytes`` sent as they are, with whatever content type ``headers``
+    gives them."""
+
     status: int = 200
     body: Any = None
     headers: dict[str, str] = field(default_factory=dict)
 
     def payload(self) -> bytes:
+        if isinstance(self.body, (bytes, bytearray)):
+            return bytes(self.body)
         return b"" if self.body is None else json.dumps(self.body).encode()
 
     def encode(self) -> bytes:
         payload = self.payload()
-        phrase = http.HTTPStatus(self.status).phrase
+        try:
+            phrase = http.HTTPStatus(self.status).phrase
+        except ValueError:  # a status an app made up
+            phrase = "Unknown"
         lines = [f"HTTP/1.1 {self.status} {phrase}",
                  f"Content-Length: {len(payload)}", "Connection: close"]
-        if self.body is not None:
+        if self.body is not None and not isinstance(self.body, (bytes, bytearray)):
             lines.append("Content-Type: application/json")
         lines += [f"{k}: {v}" for k, v in self.headers.items()]
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + payload
@@ -95,6 +110,7 @@ class Request:
     headers: dict[str, str]  # names lowercased
     body: bytes
     path_params: dict[str, str] = field(default_factory=dict)
+    query: str = ""
 
     def json(self) -> Any:
         """The body parsed as JSON; raises ValueError when it is not."""
@@ -127,14 +143,18 @@ def _segments(path: str) -> list[str]:
 
 def _match(segments: list[str], path: str) -> dict[str, str] | None:
     parts = _segments(path)
-    if len(parts) != len(segments):
+    tail = segments[-1] if segments and segments[-1].endswith(":.*}") else None
+    fixed = segments[:-1] if tail else segments
+    if len(parts) < len(fixed) or (tail is None and len(parts) != len(fixed)):
         return None
     params = {}
-    for seg, part in zip(segments, parts):
+    for seg, part in zip(fixed, parts):
         if seg.startswith("{") and seg.endswith("}"):
             params[seg[1:-1]] = part
         elif seg != part:
             return None
+    if tail:
+        params[tail[1:-len(":.*}")]] = "/".join(parts[len(fixed):])
     return params
 
 
@@ -142,7 +162,7 @@ class _Route:
     __slots__ = ("method", "path", "handler", "kind", "segments")
 
     def __init__(self, method: str, path: str, handler: Handler, kind: str) -> None:
-        self.method = method
+        self.method = method  # "*" for any
         self.path = path
         self.handler = handler
         #: "http", or "subscription" for a topic's delivery route
@@ -150,12 +170,81 @@ class _Route:
         self.segments = _segments(path)
 
 
+class Router:
+    """Routes in registration order; an exact path takes precedence
+    over a parametrised one."""
+
+    def __init__(self) -> None:
+        self.table: list[_Route] = []
+        self._exact: dict[tuple[str, str], _Route] = {}
+
+    def add(self, method: str, path: str, handler: Handler, kind: str = "http") -> None:
+        route = _Route(method, path, handler, kind)
+        self.table.append(route)
+        if "{" not in path:
+            self._exact[(method, path)] = route
+
+    def find(self, method: str, path: str) -> tuple[_Route, dict[str, str]] | None:
+        route = self._exact.get((method, path)) or self._exact.get(("*", path))
+        if route is not None:
+            return route, {}
+        for route in self.table:
+            if route.method in (method, "*") and "{" in route.path:
+                params = _match(route.segments, path)
+                if params is not None:
+                    return route, params
+        return None
+
+    def known_path(self, path: str) -> bool:
+        return any(_match(route.segments, path) is not None for route in self.table)
+
+
+async def _read_request(reader: asyncio.StreamReader, handle) -> Response:
+    try:
+        head = await reader.readuntil(b"\r\n\r\n")
+    except asyncio.LimitOverrunError:
+        return Response(431, {"error": "request head too large"})
+    lines = head.decode("latin-1").split("\r\n")
+    parts = lines[0].split(" ")
+    if len(parts) != 3:
+        return Response(400, {"error": "malformed request line"})
+    headers = {}
+    for line in lines[1:]:
+        name, sep, value = line.partition(":")
+        if sep:
+            headers[name.strip().lower()] = value.strip()
+    try:
+        length = int(headers.get("content-length", "0"))
+    except ValueError:
+        return Response(400, {"error": "malformed Content-Length"})
+    if length < 0 or length > MAX_BODY_BYTES:
+        return Response(413, {"error": f"body must be 0..{MAX_BODY_BYTES} bytes"})
+    body = await reader.readexactly(length)
+    return await handle(parts[0], parts[1], headers, body)
+
+
+async def start_server(handle: Callable[[str, str, dict[str, str], bytes], Awaitable[Response]],
+                       host: str, port: int) -> asyncio.Server:
+    """Serve ``handle(method, target, headers, body)`` over HTTP/1.1 on
+    ``host:port`` (0 picks a free port): one request per connection,
+    header names lowercased, the target with its query string."""
+    async def serve(reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        try:
+            response = await _read_request(reader, handle)
+            writer.write(response.encode())
+            await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass  # the client went away; nothing to answer
+        finally:
+            writer.close()
+
+    return await asyncio.start_server(serve, host, port, limit=MAX_HEADER_BYTES)
+
+
 class App:
     def __init__(self, app_id: str) -> None:
         self.app_id = app_id
-        #: every route in registration order; exact paths also by (method, path)
-        self._table: list[_Route] = []
-        self._routes: dict[tuple[str, str], _Route] = {}
+        self.router = Router()
         #: the subscription document: {"pubsubname", "topic", "route"} each
         self.subscriptions: list[dict[str, str]] = []
         self._startup: list[Callable[[], Awaitable[None]]] = []
@@ -179,10 +268,7 @@ class App:
 
     def route(self, method: str, path: str, *, kind: str = "http") -> Callable[[Handler], Handler]:
         def register(fn: Handler) -> Handler:
-            route = _Route(method, path, fn, kind)
-            self._table.append(route)
-            if "{" not in path:
-                self._routes[(method, path)] = route
+            self.router.add(method, path, fn, kind)
             return fn
         return register
 
@@ -212,8 +298,7 @@ class App:
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Listen on ``host:port`` (0 picks a free port), start the loop's
         lag probe, :meth:`begin`, and return the bound port."""
-        self._server = await asyncio.start_server(
-            self._serve_connection, host, port, limit=MAX_HEADER_BYTES)
+        self._server = await start_server(self.handle, host, port)
         self._lag_probe = EventLoopLagProbe()
         self._lag_probe.start()
         self.begin()
@@ -272,7 +357,7 @@ class App:
                      body: bytes = b"") -> Response:
         """Dispatch one request: the front door of every path. Header
         names must be lowercase."""
-        path = path.split("?", 1)[0]
+        path, _, query = path.partition("?")
         headers = headers or {}
         if method == "GET" and path == STATS_PATH:
             # the scaler's probe: not load, never shed, behind the token
@@ -290,29 +375,15 @@ class App:
         self.inflight += 1
         self.requests_total += 1
         try:
-            return await self._dispatch(Request(method, path, headers, body))
+            return await self._dispatch(Request(method, path, headers, body, query=query))
         finally:
             self.inflight -= 1
-
-    def _find(self, method: str, path: str) -> tuple[_Route, dict[str, str]] | None:
-        route = self._routes.get((method, path))
-        if route is not None:
-            return route, {}
-        for route in self._table:
-            if route.method == method and "{" in route.path:
-                params = _match(route.segments, path)
-                if params is not None:
-                    return route, params
-        return None
-
-    def _known_path(self, path: str) -> bool:
-        return any(_match(route.segments, path) is not None for route in self._table)
 
     def openapi(self) -> dict:
         """An OpenAPI 3.1 document of the HTTP routes (subscription routes
         left out), as the JAX ``App.openapi`` builds it."""
         paths: dict[str, dict] = {}
-        for route in self._table:
+        for route in self.router.table:
             if route.kind != "http":
                 continue
             entry = paths.setdefault("/" + "/".join(route.segments), {})
@@ -337,12 +408,12 @@ class App:
             return Response(204)
         if method == "GET" and path == "/openapi.json":
             return Response(body=self.openapi())
-        found = self._find(method, path)
+        found = self.router.find(method, path)
         if found is None:
-            if path == "/healthz" and not self._known_path(path):
+            known = self.router.known_path(path)
+            if path == "/healthz" and not known:
                 return Response(204)
-            return Response(405 if self._known_path(path) else 404,
-                            {"error": f"no route {method} {path}"})
+            return Response(405 if known else 404, {"error": f"no route {method} {path}"})
         route, request.path_params = found
         traceparent = request.headers.get(TRACEPARENT_HEADER)
         baggage = request.headers.get(BAGGAGE_HEADER)
@@ -369,37 +440,3 @@ class App:
         except Exception:  # noqa: BLE001 - one request must not stop the server
             logger.exception("%s %s failed", request.method, request.path)
             return Response(500, {"error": "internal error"})
-
-    async def _serve_connection(self, reader: asyncio.StreamReader,
-                                writer: asyncio.StreamWriter) -> None:
-        try:
-            response = await self._read_and_handle(reader)
-            writer.write(response.encode())
-            await writer.drain()
-        except (ConnectionError, asyncio.IncompleteReadError):
-            pass  # the client went away; nothing to answer
-        finally:
-            writer.close()
-
-    async def _read_and_handle(self, reader: asyncio.StreamReader) -> Response:
-        try:
-            head = await reader.readuntil(b"\r\n\r\n")
-        except asyncio.LimitOverrunError:
-            return Response(431, {"error": "request head too large"})
-        lines = head.decode("latin-1").split("\r\n")
-        parts = lines[0].split(" ")
-        if len(parts) != 3:
-            return Response(400, {"error": "malformed request line"})
-        headers = {}
-        for line in lines[1:]:
-            name, sep, value = line.partition(":")
-            if sep:
-                headers[name.strip().lower()] = value.strip()
-        try:
-            length = int(headers.get("content-length", "0"))
-        except ValueError:
-            return Response(400, {"error": "malformed Content-Length"})
-        if length < 0 or length > MAX_BODY_BYTES:
-            return Response(413, {"error": f"body must be 0..{MAX_BODY_BYTES} bytes"})
-        body = await reader.readexactly(length)
-        return await self.handle(parts[0], parts[1], headers, body)

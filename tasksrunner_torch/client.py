@@ -13,6 +13,9 @@
   blocking client on the event loop.
 * :meth:`AppClient.direct` goes through an in-process host
   (:class:`~tasksrunner_torch.hosting.InProcHost`).
+* :meth:`AppClient.runtime` calls a :class:`~tasksrunner_torch.runtime.Runtime`
+  in the same process (an app beside its sidecar in
+  :class:`~tasksrunner_torch.hosting.AppHost`).
 """
 
 from __future__ import annotations
@@ -134,7 +137,8 @@ class _DirectTransport:
         await self._host.state_store(store).set(key, value)
 
     async def get_state(self, store: str, key: str) -> Any:
-        return await self._host.state_store(store).get(key)
+        item = await self._host.state_store(store).get(key)
+        return None if item is None else item.value
 
     async def publish(self, pubsub: str, topic: str, data: Any) -> None:
         await self._host.publish(self._app_id, pubsub, topic, data)
@@ -144,11 +148,31 @@ class _DirectTransport:
         return await self._host.invoke(app_id, http_method, method_path, headers, body)
 
 
-class AppClient:
-    """Make one with :meth:`http` beside a sidecar, or :meth:`direct` in
-    an in-process host."""
+class _RuntimeTransport:
+    def __init__(self, runtime: Any) -> None:
+        self._rt = runtime
 
-    def __init__(self, transport: _HTTPTransport | _DirectTransport) -> None:
+    async def save_state(self, store: str, key: str, value: Any) -> None:
+        await self._rt.save_state(store, [{"key": key, "value": value}])
+
+    async def get_state(self, store: str, key: str) -> Any:
+        item = await self._rt.get_state(store, key)
+        return None if item is None else item.value
+
+    async def publish(self, pubsub: str, topic: str, data: Any) -> None:
+        await self._rt.publish(pubsub, topic, data)
+
+    async def invoke(self, app_id: str, method_path: str, http_method: str,
+                     headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
+        return await self._rt.invoke(app_id, method_path, http_method=http_method,
+                                     headers=headers, body=body)
+
+
+class AppClient:
+    """Make one with :meth:`http` beside a sidecar, :meth:`direct` in an
+    in-process host, or :meth:`runtime` beside a runtime in one process."""
+
+    def __init__(self, transport: _HTTPTransport | _DirectTransport | _RuntimeTransport) -> None:
         self._t = transport
 
     @classmethod
@@ -159,6 +183,11 @@ class AppClient:
     def direct(cls, host: Any, app_id: str) -> AppClient:
         """The client of app ``app_id`` in the in-process ``host``."""
         return cls(_DirectTransport(host, app_id))
+
+    @classmethod
+    def runtime(cls, runtime: Any) -> AppClient:
+        """The client of the app that ``runtime`` serves."""
+        return cls(_RuntimeTransport(runtime))
 
     async def save_state(self, store: str, key: str, value: Any) -> None:
         await self._t.save_state(store, key, value)

@@ -1,8 +1,58 @@
-"""The errors of the port: the counterparts of
-``tasksrunner.errors.SaturatedError`` (the serving plane sheds load) and
-``InvocationError`` (a runtime call failed)."""
+"""The errors of the port: the part of ``tasksrunner/errors.py`` the
+scorer, its runtime and its sidecar raise.
+
+Every error below :class:`TasksRunnerError` carries the HTTP status the
+sidecar answers it with (:attr:`TasksRunnerError.http_status`), as in the
+JAX package; anything else is a 500.
+"""
 
 from __future__ import annotations
+
+
+class TasksRunnerError(Exception):
+    """Base class of the port's runtime errors."""
+
+    #: the status the sidecar maps this error to
+    http_status = 500
+
+
+class ValidationError(TasksRunnerError):
+    """A request's input is malformed."""
+
+    http_status = 400
+
+
+class ComponentError(TasksRunnerError):
+    """A component file or definition is malformed, or uses a part the
+    port does not have."""
+
+    http_status = 400
+
+
+class ComponentNotFound(TasksRunnerError):
+    """No component of that name is registered or in scope."""
+
+    http_status = 400
+
+
+class PermissionDenied(TasksRunnerError):
+    """The app's grants do not allow this operation on this component."""
+
+    http_status = 403
+
+
+class DriverNotFound(ComponentError):
+    """No driver is registered for a component's ``type``."""
+
+
+class StateError(TasksRunnerError):
+    http_status = 500
+
+
+class EtagMismatch(StateError):
+    """Optimistic-concurrency conflict on a state write."""
+
+    http_status = 409
 
 
 class SaturatedError(Exception):
@@ -16,7 +66,7 @@ class SaturatedError(Exception):
     retry_after: float | None = None
 
 
-class InvocationError(Exception):
+class InvocationError(TasksRunnerError):
     """A call through the app's runtime client failed: the runtime was
     unreachable, or it answered a state, publish or invoke call with an
     error status (:attr:`status`; None when nothing answered)."""
@@ -24,3 +74,9 @@ class InvocationError(Exception):
     def __init__(self, message: str, *, status: int | None = None) -> None:
         super().__init__(message)
         self.status = status
+
+
+class AppNotFound(InvocationError):
+    """Name resolution found no app of the target id."""
+
+    http_status = 404

@@ -1,6 +1,16 @@
-"""Apps and their runtime in one event loop, with no sockets: the port's
-counterpart of the part of ``tasksrunner/hosting.py::InProcCluster`` the
-scorer needs.
+"""Hosting apps with their runtime: the port of ``tasksrunner/hosting.py``'s
+``AppHost`` and of the part of ``InProcCluster`` the scorer needs.
+
+:class:`AppHost` is one app and its sidecar in one process, over real
+sockets: the app on its own port (``App.start``), the sidecar
+(:class:`~tasksrunner_torch.sidecar.Sidecar`) on another, the app's
+client calling the sidecar's runtime directly, and the replica
+registered in the resolver's file so peers can invoke it. A start that
+fails part-way unwinds what it started. ``python -m tasksrunner_torch
+host`` runs one.
+
+The rest of this module is the in-process host: apps and their runtime
+in one event loop, with no sockets.
 
 :class:`InProcHost` is built from named components (state stores and
 brokers). :meth:`~InProcHost.start` gives every app its in-process
@@ -25,14 +35,16 @@ its recorded span, ``invoke {app_id}/{path}`` of kind ``client`` or
 hangs under it. It also runs the loop's lag probe
 (:mod:`tasksrunner_torch.probes`) while it is started.
 
-``App.start`` still serves HTTP for the two-process layout, where a
-``tasksrunner sidecar --app-port P`` of the JAX runtime hosts the app.
+``App.start`` also serves the two-process layout, an app beside a
+``python -m tasksrunner_torch sidecar --app-port P`` of its own.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import logging
+import os
 import time
 from typing import Any, Awaitable, Callable
 
@@ -40,15 +52,104 @@ from tasksrunner_torch import cloudevents, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.app import App
 from tasksrunner_torch.client import AppClient
+from tasksrunner_torch.component.loader import load_components
+from tasksrunner_torch.component.registry import ComponentRegistry
+from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import InvocationError
+from tasksrunner_torch.invoke.resolver import AppAddress, NameResolver
 from tasksrunner_torch.probes import EventLoopLagProbe
-from tasksrunner_torch.pubsub import InMemoryBroker, Message, Nack, retry_after_from_headers
+from tasksrunner_torch.pubsub import InMemoryBroker, Message, Nack, delivery_outcome
+from tasksrunner_torch.runtime import InProcAppChannel, Runtime
+from tasksrunner_torch.security import grants_from_env
+from tasksrunner_torch.sidecar import Sidecar
 from tasksrunner_torch.state import InMemoryStateStore
 from tasksrunner_torch.tracing import (
     BAGGAGE_HEADER, TRACEPARENT_HEADER, TraceContext, current_trace, ensure_trace, hop_headers,
 )
 
 logger = logging.getLogger(__name__)
+
+
+class AppHost:
+    """App server and sidecar of one app, in one process."""
+
+    def __init__(self, app: App, *, components_path: str | None = None,
+                 specs: list[ComponentSpec] | None = None, app_port: int = 0,
+                 sidecar_port: int = 0, host: str = "127.0.0.1", bind: str | None = None,
+                 registry_file: str | None = None, register: bool = True) -> None:
+        self.app = app
+        #: where the sidecar binds and where peers reach it
+        self.host = host
+        #: the app server's bind address ("0.0.0.0": external ingress);
+        #: the sidecar stays on ``host``
+        self.bind = bind or host
+        self.app_port = app_port
+        self.sidecar_port = sidecar_port
+        self.register = register
+        if specs is None:
+            specs = load_components(components_path) if components_path else []
+        self.specs = specs
+        self.resolver = NameResolver(registry_file=registry_file)
+        #: the app's grants from ``TASKSRUNNER_GRANTS``; None = unrestricted
+        self.grants = grants_from_env()
+        self.sidecar: Sidecar | None = None
+        self._app_started = False
+
+    async def start(self) -> None:
+        """App server, sidecar (its subscribe handshake included), then
+        the registration; a failure unwinds what already started."""
+        try:
+            runtime = Runtime(self.app.app_id,
+                              ComponentRegistry(self.specs, app_id=self.app.app_id),
+                              resolver=self.resolver, app_channel=InProcAppChannel(self.app),
+                              grants=self.grants)
+            # the app's calls go to its runtime directly; HTTP starts at
+            # the first process boundary (peer invokes)
+            self.app.client = AppClient.runtime(runtime)
+            self.app_port = await self.app.start(self.bind, self.app_port)
+            self._app_started = True
+            self.sidecar = Sidecar(runtime, host=self.host, port=self.sidecar_port, app=self.app)
+            await self.sidecar.start()
+            self.sidecar_port = self.sidecar.port
+            if self.register:
+                # off the loop: the registry's lock file may be waited on
+                await asyncio.to_thread(self.resolver.register, AppAddress(
+                    app_id=self.app.app_id, host=self.host,
+                    sidecar_port=self.sidecar_port, app_port=self.app_port))
+        except BaseException:
+            await self._teardown()
+            raise
+        logger.info("app %s on :%d, sidecar on :%d", self.app.app_id, self.app_port,
+                    self.sidecar_port)
+
+    async def _teardown(self) -> list[Exception]:
+        """Stop whatever started, in reverse order; each step is tried
+        whatever the one before it raised."""
+        steps = []
+        if self.register:
+            steps.append(("unregister", lambda: asyncio.to_thread(
+                self.resolver.unregister, self.app.app_id, pid=os.getpid(),
+                sidecar_port=self.sidecar_port)))
+        if self.sidecar is not None:
+            steps.append(("sidecar stop", self.sidecar.stop))
+        if self._app_started:
+            steps.append(("app stop", self.app.stop))
+        errors = []
+        for what, step in steps:
+            try:
+                await step()
+            except Exception as exc:  # noqa: BLE001 - the rest must still run
+                logger.exception("%s failed", what)
+                errors.append(exc)
+        self.sidecar = None
+        self._app_started = False
+        return errors
+
+    async def stop(self) -> None:
+        """Unregister, stop the sidecar (its deliveries first), then the app."""
+        errors = await self._teardown()
+        if errors:
+            raise ExceptionGroup("app host stop failures", errors)
 
 
 class InProcHost:
@@ -162,12 +263,8 @@ class InProcHost:
                 if name in msg.metadata:
                     headers[name] = msg.metadata[name]
             resp = await app.handle("POST", route, headers, json.dumps(msg.data).encode())
-            if 200 <= resp.status < 300:
-                return True
-            if resp.status in (429, 503):
-                delay = retry_after_from_headers(resp.headers)
-                if delay is not None:
-                    self.declined[resp.status] = self.declined.get(resp.status, 0) + 1
-                    return Nack(retry_after=delay, counts_attempt=False)
-            return False
+            outcome = delivery_outcome(resp.status, resp.headers)
+            if isinstance(outcome, Nack):
+                self.declined[resp.status] = self.declined.get(resp.status, 0) + 1
+            return outcome
         return deliver

@@ -1,18 +1,10 @@
-"""An in-process pub/sub broker: the port of ``tasksrunner/pubsub/memory.py``
-and of the delivery contract in ``tasksrunner/pubsub/base.py``.
+"""An in-process pub/sub broker: the port of ``tasksrunner/pubsub/memory.py``,
+under the delivery contract of :mod:`tasksrunner_torch.pubsub.base`.
 
-* One consumer group per subscribing app: every group on a topic gets
-  each message; the consumers of one group compete for it (round robin).
-  A group takes one message at a time.
-* At-least-once delivery: a handler acks with a truthy result and nacks
-  with a falsy one or by raising; a nacked message comes back after
-  ``retry_delay`` and is dead-lettered after ``max_attempts`` tries.
-* A :class:`Nack` carries hints: ``retry_after`` replaces the retry
-  delay, and ``counts_attempt=False`` (a 429 or 503 with
-  ``Retry-After``: the app declined the message without looking at it)
-  redelivers it without using up an attempt, so a warm-up or a shedding
-  front door cannot dead-letter a message.
-
+A group's consumers take turns (round robin) and the group takes one
+message at a time; a nacked message comes back after ``retry_delay``
+(or its :class:`~tasksrunner_torch.pubsub.base.Nack`'s ``retry_after``)
+and is dead-lettered after ``max_attempts`` tries that count.
 Nothing outlives the process.
 """
 
@@ -22,51 +14,14 @@ import asyncio
 import itertools
 import logging
 from collections import defaultdict
-from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
+from tasksrunner_torch.component.registry import driver
+from tasksrunner_torch.component.spec import ComponentSpec
+from tasksrunner_torch.pubsub.base import Handler, Message, Nack
 from tasksrunner_torch.tracing import hex16
 
 logger = logging.getLogger(__name__)
-
-
-@dataclass
-class Message:
-    id: str
-    topic: str
-    data: Any
-    metadata: dict[str, str] = field(default_factory=dict)
-    #: the delivery attempt this is, from 1
-    attempt: int = 1
-
-
-class Nack:
-    """A falsy handler outcome that says when to redeliver and whether
-    the try counts against the attempt budget."""
-
-    __slots__ = ("retry_after", "counts_attempt")
-
-    def __init__(self, retry_after: float | None = None, *,
-                 counts_attempt: bool = True) -> None:
-        self.retry_after = retry_after
-        self.counts_attempt = counts_attempt
-
-    def __bool__(self) -> bool:
-        return False
-
-
-def retry_after_from_headers(headers: dict[str, str] | None) -> float | None:
-    """A numeric ``Retry-After`` from a header map (any case), or None."""
-    for key, value in (headers or {}).items():
-        if key.lower() == "retry-after":
-            try:
-                return max(0.0, float(value.strip()))
-            except (TypeError, ValueError):
-                return None
-    return None
-
-
-Handler = Callable[[Message], Awaitable["bool | Nack"]]
 
 
 class _Group:
@@ -147,3 +102,9 @@ class InMemoryBroker:
                 if g.pump is not None:
                     g.pump.cancel()
                     g.pump = None
+
+
+@driver("pubsub.in-memory", "pubsub.memory")
+def _memory_pubsub(spec: ComponentSpec, metadata: dict[str, str]) -> InMemoryBroker:
+    return InMemoryBroker(spec.name, max_attempts=int(metadata.get("maxRetries", 3)),
+                          retry_delay=float(metadata.get("retryDelaySeconds", 0.05)))

@@ -1,0 +1,365 @@
+"""The runtime behind a sidecar: the port of ``tasksrunner/runtime.py``
+without actors, workflows, bindings, secrets, chaos, resiliency policies
+and the mTLS mesh.
+
+One :class:`Runtime` per app identity holds the app's scoped
+:class:`~tasksrunner_torch.component.registry.ComponentRegistry` and a
+channel to the app: :class:`HTTPAppChannel` to an app served on its own
+port (the two-process layout), :class:`InProcAppChannel` to an app in
+the same process (:class:`~tasksrunner_torch.hosting.AppHost`). The
+sidecar (:mod:`tasksrunner_torch.sidecar`) puts it on HTTP routes; an
+app beside it in one process calls it directly
+(:meth:`~tasksrunner_torch.client.AppClient.runtime`).
+
+* **State**: every key is stored under the component's ``keyPrefix``
+  (``{app-id}||key`` by default); save, get, bulk get, delete and
+  transactions, with etags.
+* **Publish**: the data wrapped in a CloudEvent (unless raw), and a
+  ``producer`` span ``publish {pubsub}/{topic}`` whose context rides the
+  message as its ``traceparent`` (and ``baggage``).
+* **Invoke**: the app itself through its channel, any other app through
+  its sidecar over HTTP, found by the resolver on every attempt; a
+  ``client`` span ``invoke {app}/{path}``; the ``tr-api-token`` header
+  when ``TASKSRUNNER_API_TOKEN`` is set. Transport failures are retried
+  (:data:`INVOKE_ATTEMPTS`); error statuses are returned as they are.
+* **Start**: wait until the app answers ``GET /tasksrunner/healthz``,
+  read ``GET /tasksrunner/subscribe`` and subscribe one consumer per
+  entry (group: the app id), after a ``subscribe`` grant check where
+  grants are given. A delivery hands the app the message's wire
+  ``traceparent`` and ``baggage``; 2xx acks, 429/503 with
+  ``Retry-After`` defers without using up an attempt, anything else
+  nacks (:func:`~tasksrunner_torch.pubsub.base.delivery_outcome`).
+
+Metrics, in the process-wide registry: ``state_op_latency_seconds``,
+``publish_latency_seconds``, ``invoke_latency_seconds``,
+``pubsub_delivery{route,status}`` and ``delivery_latency_seconds{route}``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import os
+import time
+from typing import Any, Awaitable, Callable
+
+from tasksrunner_torch import cloudevents, spans
+from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
+from tasksrunner_torch.component.registry import ComponentRegistry
+from tasksrunner_torch.errors import AppNotFound, ComponentNotFound, InvocationError, StateError
+from tasksrunner_torch.invoke.resolver import NameResolver
+from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.pubsub.base import Message, Nack, delivery_outcome
+from tasksrunner_torch.security import AppGrants
+from tasksrunner_torch.state.base import StateItem, TransactionOp
+from tasksrunner_torch.state.keyprefix import KeyPrefixer, prefixer_for
+from tasksrunner_torch.tracing import (
+    BAGGAGE_HEADER, TRACEPARENT_HEADER, TraceContext, current_trace, ensure_trace,
+    hop_headers, trace_scope,
+)
+
+logger = logging.getLogger(__name__)
+
+Reply = tuple[int, dict[str, str], bytes]
+#: a peer invoke's transport failures are tried this many times, the
+#: n-th retry after n × INVOKE_RETRY_DELAY seconds
+INVOKE_ATTEMPTS, INVOKE_RETRY_DELAY = 3, 0.2
+
+
+class InProcAppChannel:
+    """Dispatch into an :class:`~tasksrunner_torch.app.App` in this process."""
+
+    def __init__(self, app) -> None:
+        self.app = app
+
+    async def request(self, method: str, path: str, *, query: str = "",
+                      headers: dict[str, str] | None = None, body: bytes = b"") -> Reply:
+        target = path + (f"?{query}" if query else "")
+        resp = await self.app.handle(method, target, {k.lower(): v for k, v in
+                                                      (headers or {}).items()}, body)
+        reply_headers = {k.lower(): v for k, v in resp.headers.items()}
+        if resp.body is not None and not isinstance(resp.body, (bytes, bytearray)):
+            reply_headers.setdefault("content-type", "application/json")
+        return resp.status, reply_headers, resp.payload()
+
+
+class HTTPAppChannel:
+    """HTTP to the app's own port on ``host``."""
+
+    def __init__(self, host: str, port: int) -> None:
+        self.host = host
+        self.port = port
+
+    async def request(self, method: str, path: str, *, query: str = "",
+                      headers: dict[str, str] | None = None, body: bytes = b"") -> Reply:
+        target = path + (f"?{query}" if query else "")
+        try:
+            return await http_request(self.host, self.port, method, target,
+                                      headers=headers, body=body)
+        except (OSError, asyncio.IncompleteReadError) as exc:
+            raise InvocationError(
+                f"app unreachable at http://{self.host}:{self.port}{target}: {exc}") from exc
+
+
+class Runtime:
+    def __init__(self, app_id: str | None, registry: ComponentRegistry, *,
+                 resolver: NameResolver | None = None, app_channel=None,
+                 grants: AppGrants | None = None) -> None:
+        self.app_id = app_id
+        self.registry = registry
+        self.resolver = resolver or NameResolver()
+        self.app_channel = app_channel
+        #: per-component permissions; None = unrestricted
+        self.grants = grants
+        #: (topic, group, cancel) of each subscription
+        self._subscriptions: list[tuple[str, str, Callable[[], Awaitable[None]]]] = []
+        self._started = False
+
+    def _authorize(self, component: str, op: str, *, topic: str | None = None) -> None:
+        if self.grants is not None:
+            self.grants.check(component, op, topic=topic, app_id=self.app_id)
+
+    def _state_store(self, name: str) -> tuple[Any, KeyPrefixer]:
+        store = self.registry.get(name, block="state")
+        return store, prefixer_for(self.registry.spec(name).metadata, app_id=self.app_id,
+                                   component_name=name)
+
+    # -- state -----------------------------------------------------------
+
+    async def save_state(self, store_name: str, items: list[dict]) -> None:
+        self._authorize(store_name, "write")
+        store, prefixer = self._state_store(store_name)
+        if any(not isinstance(item, dict) or "key" not in item for item in items):
+            raise StateError("each state item needs a key")
+        started = time.perf_counter()
+        for item in items:
+            await store.set(prefixer.apply(str(item["key"])), item.get("value"),
+                            etag=item.get("etag"))
+        metrics.inc("state_save", len(items), store=store_name)
+        metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
+                        store=store_name, op="save")
+
+    async def get_state(self, store_name: str, key: str) -> StateItem | None:
+        self._authorize(store_name, "read")
+        store, prefixer = self._state_store(store_name)
+        metrics.inc("state_get", store=store_name)
+        started = time.perf_counter()
+        item = await store.get(prefixer.apply(key))
+        metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
+                        store=store_name, op="get")
+        return item
+
+    async def delete_state(self, store_name: str, key: str, *, etag: str | None = None) -> bool:
+        self._authorize(store_name, "write")
+        store, prefixer = self._state_store(store_name)
+        metrics.inc("state_delete", store=store_name)
+        return await store.delete(prefixer.apply(key), etag=etag)
+
+    async def bulk_get_state(self, store_name: str, keys: list) -> list[dict]:
+        self._authorize(store_name, "read")
+        store, prefixer = self._state_store(store_name)
+        items = await store.bulk_get([prefixer.apply(str(k)) for k in keys])
+        metrics.inc("state_bulk_get", len(keys), store=store_name)
+        out = []
+        for key, item in zip(keys, items):
+            entry: dict = {"key": str(key)}
+            if item is not None:
+                entry["data"] = item.value
+                entry["etag"] = item.etag
+            out.append(entry)
+        return out
+
+    async def transact_state(self, store_name: str, operations: list[dict]) -> None:
+        self._authorize(store_name, "write")
+        store, prefixer = self._state_store(store_name)
+        ops = []
+        for op in operations:
+            kind = op.get("operation")
+            if kind not in ("upsert", "delete"):
+                raise StateError(f"unknown transaction operation {kind!r}")
+            req = op.get("request") or {}
+            if "key" not in req:
+                raise StateError("each transaction request needs a key")
+            ops.append(TransactionOp(operation=kind, key=prefixer.apply(str(req["key"])),
+                                     value=req.get("value"), etag=req.get("etag")))
+        started = time.perf_counter()
+        await store.transact(ops)
+        metrics.inc("state_transact", store=store_name)
+        metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
+                        store=store_name, op="transact")
+
+    # -- pub/sub ---------------------------------------------------------
+
+    async def publish(self, pubsub_name: str, topic: str, data: Any, *,
+                      metadata: dict[str, str] | None = None, raw: bool = False) -> str:
+        self._authorize(pubsub_name, "publish", topic=topic)
+        broker = self.registry.get(pubsub_name, block="pubsub")
+        envelope = data if raw else cloudevents.wrap(
+            data, source=self.app_id or "tasksrunner", topic=topic, pubsub_name=pubsub_name)
+        # a raw payload must not be unwrapped on delivery
+        meta = {**(metadata or {}),
+                "content-type": "application/json" if raw else cloudevents.CONTENT_TYPE}
+        # one child context is both the consumers' wire parent and the
+        # producer span
+        ctx = current_trace() or TraceContext.new()
+        child = ctx.child()
+        meta.update(hop_headers(child))
+        started = time.time()
+        msg_id = await broker.publish(topic, envelope, metadata=meta)
+        elapsed = time.time() - started
+        metrics.inc("publish", pubsub=pubsub_name, topic=topic)
+        metrics.observe("publish_latency_seconds", elapsed, pubsub=pubsub_name, topic=topic)
+        spans.record_span(kind="producer", name=f"publish {pubsub_name}/{topic}", status=200,
+                          start=started, duration=elapsed,
+                          attrs={"target": f"{pubsub_name}/{topic}"}, trace_id=child.trace_id,
+                          span_id=child.span_id, parent_id=ctx.span_id)
+        return msg_id
+
+    # -- service invocation ----------------------------------------------
+
+    async def invoke(self, target_app_id: str, method_path: str, *, http_method: str = "POST",
+                     query: str = "", headers: dict[str, str] | None = None,
+                     body: bytes = b"") -> Reply:
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        incoming = headers.get(TRACEPARENT_HEADER)
+        if incoming:  # the caller's explicit context: continue it
+            base = ensure_trace(incoming, headers.get(BAGGAGE_HEADER))
+        else:
+            base = current_trace() or TraceContext.new()
+        # one child context is both the wire header and the client span
+        child = base.child()
+        headers.update(hop_headers(child))
+        path = "/" + method_path.lstrip("/")
+        metrics.inc("invoke", target=target_app_id)
+        started = time.time()
+        if self.app_id is not None and target_app_id == self.app_id:
+            if self.app_channel is None:
+                raise InvocationError(f"no app channel for local app {self.app_id!r}")
+            reply = await self.app_channel.request(http_method, path, query=query,
+                                                   headers=headers, body=body)
+        else:
+            reply = await self._invoke_peer(target_app_id, path, http_method, query,
+                                            headers, body)
+        elapsed = time.time() - started
+        metrics.observe("invoke_latency_seconds", elapsed, target=target_app_id)
+        spans.record_span(kind="client", name=f"invoke {target_app_id}{path}",
+                          status=reply[0], start=started, duration=elapsed,
+                          attrs={"target": target_app_id}, trace_id=child.trace_id,
+                          span_id=child.span_id, parent_id=base.span_id)
+        return reply
+
+    async def _invoke_peer(self, target: str, path: str, http_method: str, query: str,
+                           headers: dict[str, str], body: bytes) -> Reply:
+        """Through the target's sidecar over HTTP, re-resolved on every
+        attempt (the peer may have come back on a new port)."""
+        token = os.environ.get(TOKEN_ENV)
+        if token:  # the sidecars of one cluster share the token
+            headers.setdefault(TOKEN_HEADER, token)
+        target_path = f"/v1.0/invoke/{target}/method{path}" + (f"?{query}" if query else "")
+        last_exc: Exception | None = None
+        for attempt in range(INVOKE_ATTEMPTS):
+            try:
+                addr = self.resolver.resolve(target)
+                return await http_request(addr.host, addr.sidecar_port, http_method,
+                                          target_path, headers=headers, body=body)
+            except (OSError, asyncio.IncompleteReadError, AppNotFound) as exc:
+                last_exc = exc
+                if attempt + 1 < INVOKE_ATTEMPTS:
+                    logger.warning("invoke %s attempt %d/%d failed (%s); retrying",
+                                   target, attempt + 1, INVOKE_ATTEMPTS, exc)
+                    await asyncio.sleep(INVOKE_RETRY_DELAY * (attempt + 1))
+        if isinstance(last_exc, AppNotFound):
+            raise last_exc
+        raise InvocationError(f"cannot reach sidecar of {target!r} after "
+                              f"{INVOKE_ATTEMPTS} attempts: {last_exc}") from last_exc
+
+    # -- the consumer side -----------------------------------------------
+
+    async def _wait_for_app(self, timeout: float = 30.0) -> None:
+        """Until the app answers its built-in health route: the app may
+        not listen yet when the sidecar starts."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                status, _, _ = await self.app_channel.request("GET", "/tasksrunner/healthz")
+                if status < 500:
+                    return
+            except InvocationError:
+                pass  # not up yet
+            if time.monotonic() > deadline:
+                raise InvocationError(
+                    f"app {self.app_id!r} did not become healthy within {timeout}s")
+            await asyncio.sleep(0.1)
+
+    async def start(self) -> None:
+        """The subscribe handshake: one consumer per subscription the
+        app declares."""
+        if self._started or self.app_channel is None:
+            self._started = True
+            return
+        self._started = True  # before the first await: no double start
+        await self._wait_for_app()
+        status, _, body = await self.app_channel.request("GET", "/tasksrunner/subscribe")
+        for sub in json.loads(body) if status == 200 and body else []:
+            pubsub_name, topic, route = sub["pubsubname"], sub["topic"], sub["route"]
+            try:
+                broker = self.registry.get(pubsub_name, block="pubsub")
+            except ComponentNotFound:
+                logger.warning("app %s subscribes to unknown pubsub %r; skipped",
+                               self.app_id, pubsub_name)
+                continue
+            # a component that exists but is not granted fails the start:
+            # an app must not run deaf to a subscription it declared
+            self._authorize(pubsub_name, "subscribe", topic=topic)
+            group = self.app_id or "default"
+            cancel = await broker.subscribe(topic, group,
+                                            self._make_subscription_handler(route))
+            self._subscriptions.append((topic, group, cancel))
+            logger.info("subscribed %s to %s/%s -> %s", self.app_id, pubsub_name, topic, route)
+
+    def _make_subscription_handler(self, route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
+        async def deliver(msg: Message) -> bool | Nack:
+            wire_tp = msg.metadata.get(TRACEPARENT_HEADER)
+            wire_bag = msg.metadata.get(BAGGAGE_HEADER)
+            ctx = ensure_trace(wire_tp, wire_bag)
+            with trace_scope(ctx):
+                # the app gets the wire context, so its consumer span
+                # hangs right under the producer span
+                headers = {"content-type": msg.metadata.get("content-type",
+                                                            cloudevents.CONTENT_TYPE),
+                           TRACEPARENT_HEADER: wire_tp or ctx.header}
+                if wire_bag:
+                    headers[BAGGAGE_HEADER] = wire_bag
+                started = time.perf_counter()
+                try:
+                    status, reply_headers, _ = await self.app_channel.request(
+                        "POST", route, headers=headers, body=json.dumps(msg.data).encode())
+                except Exception:  # noqa: BLE001 - an unreachable app nacks
+                    logger.exception("delivery to %s failed", route)
+                    return False
+                metrics.inc("pubsub_delivery", route=route, status=str(status))
+                metrics.observe("delivery_latency_seconds", time.perf_counter() - started,
+                                route=route)
+                return delivery_outcome(status, reply_headers)
+        return deliver
+
+    # -- metadata / teardown ---------------------------------------------
+
+    def metadata(self) -> dict:
+        return {
+            "id": self.app_id,
+            "components": [{"name": n, "type": self.registry.spec(n).type}
+                           for n in self.registry.names()],
+            "subscriptions": [{"topic": topic, "group": group}
+                              for topic, group, _ in self._subscriptions],
+            "metrics": metrics.snapshot(),
+            "histograms": metrics.snapshot_histograms(),
+        }
+
+    async def stop(self) -> None:
+        for _, _, cancel in self._subscriptions:
+            await cancel()
+        self._subscriptions.clear()
+        await self.registry.close()
+        self._started = False

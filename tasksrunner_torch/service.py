@@ -30,8 +30,9 @@ admission signal ``ml_tokens_in_flight`` (unregistered at shutdown), so
 with ``TASKSRUNNER_ADMISSION`` on a flood is shed with 429 at the front
 door (:mod:`tasksrunner_torch.admission`). The subscription and the
 state store need a runtime: an :class:`~tasksrunner_torch.hosting.InProcHost`
-in the same process, or a ``tasksrunner sidecar --app-port P`` beside
-the app's ``App.start``.
+in the same process, an :class:`~tasksrunner_torch.hosting.AppHost`
+(``python -m tasksrunner_torch host``), or a ``python -m tasksrunner_torch
+sidecar --app-port P`` beside the app served by ``serve``.
 
 Requests go through :class:`~tasksrunner_torch.batching.MicroBatcher`:
 batches are padded up the bucket ladder, and each runs ``forward`` and

@@ -1,0 +1,219 @@
+"""The sidecar: Dapr-shaped HTTP routes over a
+:class:`~tasksrunner_torch.runtime.Runtime`, the port of
+``tasksrunner/sidecar.py`` on the port's own HTTP server
+(:func:`~tasksrunner_torch.app.start_server`).
+
+* ``POST /v1.0/state/{store}`` (a list of ``{key, value, etag?}``, 204),
+  ``GET /v1.0/state/{store}/{key}`` (the value with an ``etag`` header,
+  or 204 and no body for a missing key), ``DELETE
+  /v1.0/state/{store}/{key}`` (``If-Match`` as the etag, 204),
+  ``POST /v1.0/state/{store}/bulk`` (``{"keys": [...]}``) and
+  ``POST /v1.0/state/{store}/transaction`` (``{"operations": [...]}``);
+* ``POST /v1.0/publish/{pubsub}/{topic}`` (``?metadata.rawPayload=true``
+  publishes the body unwrapped), answering ``{"messageId"}``;
+* any method on ``/v1.0/invoke/{app_id}/method/{path}``: the caller's
+  ``content-type``, ``accept`` and ``x-*`` headers go to the target, its
+  reply comes back less the hop-by-hop headers;
+* ``GET /v1.0/healthz`` (204) and ``GET /v1.0/metadata``.
+
+Every route but ``/v1.0/healthz`` needs the ``tr-api-token`` header when
+``TASKSRUNNER_API_TOKEN`` is set (401), is shed with 429 + ``Retry-After``
+while the admission controller sheds (``/v1.0/metadata`` never is), runs
+in the trace scope of the incoming ``traceparent`` (a new trace without
+one) and is timed into ``sidecar_request_latency_seconds{route}``. An
+error is answered with ``{"error": message}`` and the status its class
+maps to; malformed JSON is a 400.
+
+A standalone sidecar runs the loop's lag probe and, with
+``TASKSRUNNER_ADMISSION`` on, its own admission controller. Beside an
+app in one process (:class:`~tasksrunner_torch.hosting.AppHost`) it
+shares the app's: the app runs the probe and the controller.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import os
+import time
+from urllib.parse import parse_qs, unquote
+
+from tasksrunner_torch.admission import AdmissionController
+from tasksrunner_torch.app import App, Request, Response, Router, start_server
+from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
+from tasksrunner_torch.errors import TasksRunnerError, ValidationError
+from tasksrunner_torch.invoke.headers import inward_headers, outward_headers
+from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.probes import EventLoopLagProbe
+from tasksrunner_torch.runtime import Runtime
+from tasksrunner_torch.tracing import BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope
+
+logger = logging.getLogger(__name__)
+
+
+def json_error(exc: Exception) -> Response:
+    """The answer to a route's error: malformed JSON 400, a runtime
+    error its class's status, anything else 500."""
+    if isinstance(exc, json.JSONDecodeError):
+        return Response(400, {"error": f"malformed JSON body: {exc}"})
+    if not isinstance(exc, TasksRunnerError):
+        logger.exception("unhandled sidecar error")
+    status = exc.http_status if isinstance(exc, TasksRunnerError) else 500
+    return Response(status, {"error": str(exc) or type(exc).__name__})
+
+
+def _json_reply(value, headers: dict[str, str] | None = None) -> Response:
+    # the value as JSON text, null included
+    return Response(200, json.dumps(value).encode(),
+                    headers={"Content-Type": "application/json", **(headers or {})})
+
+
+class Sidecar:
+    """The routes of one runtime on ``host:port`` (0 picks a free port,
+    :attr:`port` holds the bound one after :meth:`start`)."""
+
+    def __init__(self, runtime: Runtime, *, host: str = "127.0.0.1", port: int = 3500,
+                 app: App | None = None) -> None:
+        self.runtime = runtime
+        self.host = host
+        self.port = port
+        self._app = app
+        self.admission: AdmissionController | None = None
+        self._lag_probe: EventLoopLagProbe | None = None
+        self._server: asyncio.Server | None = None
+        self.router = Router()
+        self._routes()
+
+    # -- the front door --------------------------------------------------
+
+    async def handle(self, method: str, target: str, headers: dict[str, str],
+                     body: bytes) -> Response:
+        """Dispatch one request (header names lowercase)."""
+        path, _, query = target.partition("?")
+        if method == "GET" and path == "/v1.0/healthz":
+            return Response(204)
+        found = self.router.find(method, path)
+        if found is None:
+            return Response(405 if self.router.known_path(path) else 404,
+                            {"error": f"no route {method} {path}"})
+        route, params = found
+        request = Request(method, path, headers, body, query=query,
+                          path_params={k: v if k == "path" else unquote(v)
+                                       for k, v in params.items()})
+        label = route.handler.__name__
+        required = os.environ.get(TOKEN_ENV)
+        if required and headers.get(TOKEN_HEADER) != required:
+            return Response(401, {"error": "missing or bad api token"})
+        # after the token check: saturation is not for anonymous eyes
+        admission = self.admission
+        if admission is not None and admission.shedding and route.kind != "exempt":
+            metrics.inc("admission_shed_total", route=label)
+            return Response(429, {"error": "replica saturated; retry later"},
+                            headers={"Retry-After": str(admission.retry_after_seconds())})
+        ctx = ensure_trace(headers.get(TRACEPARENT_HEADER), headers.get(BAGGAGE_HEADER))
+        started = time.perf_counter()
+        with trace_scope(ctx):
+            try:
+                return await route.handler(request)
+            except Exception as exc:  # noqa: BLE001 - mapped to a status
+                return json_error(exc)
+            finally:
+                metrics.observe("sidecar_request_latency_seconds",
+                                time.perf_counter() - started, route=label)
+
+    # -- the routes ------------------------------------------------------
+
+    def _routes(self) -> None:
+        runtime, add = self.runtime, self.router.add
+
+        async def save_state(req: Request) -> Response:
+            items = json.loads(req.body)
+            if not isinstance(items, list):
+                raise ValidationError("state save body must be a list of {key, value}")
+            await runtime.save_state(req.path_params["store"], items)
+            return Response(204)
+
+        async def get_state(req: Request) -> Response:
+            item = await runtime.get_state(req.path_params["store"], req.path_params["key"])
+            if item is None:
+                return Response(204)
+            return _json_reply(item.value, {"etag": item.etag})
+
+        async def delete_state(req: Request) -> Response:
+            await runtime.delete_state(req.path_params["store"], req.path_params["key"],
+                                       etag=req.headers.get("if-match"))
+            return Response(204)
+
+        async def bulk_get_state(req: Request) -> Response:
+            body = json.loads(req.body)
+            keys = body.get("keys") if isinstance(body, dict) else body
+            if not isinstance(keys, list):
+                raise ValidationError('bulk get body must be {"keys": [...]}')
+            return _json_reply(await runtime.bulk_get_state(req.path_params["store"], keys))
+
+        async def transact_state(req: Request) -> Response:
+            body = json.loads(req.body)
+            if not isinstance(body, dict):
+                raise ValidationError('transaction body must be {"operations": [...]}')
+            await runtime.transact_state(req.path_params["store"], body.get("operations", []))
+            return Response(204)
+
+        async def publish(req: Request) -> Response:
+            data = json.loads(req.body) if req.body else None
+            raw = parse_qs(req.query).get("metadata.rawPayload") == ["true"]
+            msg_id = await runtime.publish(req.path_params["pubsub"], req.path_params["topic"],
+                                           data, raw=raw)
+            return _json_reply({"messageId": msg_id})
+
+        async def invoke(req: Request) -> Response:
+            status, headers, body = await runtime.invoke(
+                req.path_params["app_id"], req.path_params["path"], http_method=req.method,
+                query=req.query, headers=inward_headers(req.headers), body=req.body)
+            return Response(status, body, headers=outward_headers(headers))
+
+        async def metadata(req: Request) -> Response:
+            return _json_reply(runtime.metadata())
+
+        add("POST", "/v1.0/state/{store}", save_state)
+        add("GET", "/v1.0/state/{store}/{key}", get_state)
+        add("DELETE", "/v1.0/state/{store}/{key}", delete_state)
+        add("POST", "/v1.0/state/{store}/bulk", bulk_get_state)
+        add("POST", "/v1.0/state/{store}/transaction", transact_state)
+        add("POST", "/v1.0/publish/{pubsub}/{topic}", publish)
+        add("*", "/v1.0/invoke/{app_id}/method/{path:.*}", invoke)
+        # never shed: an autoscaler reads its signals here under overload
+        add("GET", "/v1.0/metadata", metadata, kind="exempt")
+
+    # -- lifecycle -------------------------------------------------------
+
+    async def start(self) -> None:
+        """Listen, then run the runtime's subscribe handshake."""
+        if self._app is not None:
+            self.admission = self._app.admission
+        else:
+            self.admission = AdmissionController.from_env()
+            self._lag_probe = EventLoopLagProbe()
+        self._server = await start_server(self.handle, self.host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        await self.runtime.start()
+        if self._lag_probe is not None:
+            self._lag_probe.start()
+        if self._app is None and self.admission is not None:
+            self.admission.start()
+        logger.info("sidecar for %s listening on %s:%d", self.runtime.app_id, self.host,
+                    self.port)
+
+    async def stop(self) -> None:
+        """Stop the subscriptions (a delivery in flight finishes, and may
+        still call the routes), then the server."""
+        if self._app is None and self.admission is not None:
+            await self.admission.stop()
+        if self._lag_probe is not None:
+            await self._lag_probe.stop()
+            self._lag_probe = None
+        await self.runtime.stop()
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None

@@ -1,0 +1,42 @@
+"""Key prefixes that keep apps' state apart: the port of
+``tasksrunner/state/keyprefix.py``.
+
+A component's ``keyPrefix`` metadata picks the strategy: ``appid`` (the
+default) stores an app's key ``k`` as ``"{app-id}||k"``, ``name`` as
+``"{component}||k"``, ``none`` as ``k``, and any other literal as
+``"{literal}||k"``. The runtime applies the prefix; stores only ever
+see final keys.
+"""
+
+from __future__ import annotations
+
+from tasksrunner_torch.errors import ComponentError
+
+SEPARATOR = "||"
+
+
+class KeyPrefixer:
+    """The storage key of (app id, the app's key)."""
+
+    def __init__(self, strategy: str = "appid", *, app_id: str | None = None,
+                 component_name: str | None = None) -> None:
+        self.strategy = strategy
+        if strategy == "appid":
+            self.prefix = f"{app_id}{SEPARATOR}" if app_id else ""
+        elif strategy == "name":
+            if not component_name:
+                raise ComponentError("keyPrefix=name requires a component name")
+            self.prefix = f"{component_name}{SEPARATOR}"
+        elif strategy == "none":
+            self.prefix = ""
+        else:
+            self.prefix = f"{strategy}{SEPARATOR}"
+
+    def apply(self, key: str) -> str:
+        return self.prefix + key
+
+
+def prefixer_for(metadata: dict[str, str], *, app_id: str | None,
+                 component_name: str) -> KeyPrefixer:
+    return KeyPrefixer(metadata.get("keyPrefix", "appid"), app_id=app_id,
+                       component_name=component_name)

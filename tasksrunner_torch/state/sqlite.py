@@ -1,0 +1,444 @@
+"""The durable sqlite state store: the port of ``tasksrunner/state/sqlite.py``
+(``SqliteStateStore``) without the query dialect, shards, replication
+and staged transactions.
+
+The on-disk schema (``state(key, value, etag)`` and the store-wide etag
+sequence ``etag_seq``) and the value encoding (compact JSON, NaN
+refused) are the JAX store's, so a file written by either store reads
+back in the other.
+
+* **Group commit.** Concurrent ``set`` / ``delete`` / ``transact`` calls
+  queue, and one flush on the writer thread drains what accumulated into
+  one ``BEGIN IMMEDIATE … COMMIT``; each caller still gets its own etag
+  or :class:`~tasksrunner_torch.errors.EtagMismatch`, and writes apply in
+  the order they were queued. A run of unconditional upserts is one
+  ``executemany``. When a whole batch fails, each op is retried alone so
+  one bad op cannot fail its neighbours. ``groupCommit: false`` runs one
+  transaction per call, still off the loop.
+* **Off the loop.** Every statement runs on a writer thread or, for a
+  file, a reader thread with its own connection.
+* **WAL with a background checkpointer.** ``wal_autocheckpoint=0`` and a
+  thread that runs PASSIVE checkpoints, so no commit copies the WAL
+  inline; ``close`` folds the WAL back into the file.
+* **Read cache.** ``readCacheSize`` > 0 keeps a write-through LRU of
+  (key → document, etag); safe only where this process is the file's
+  one writer.
+
+The store sets the gauge ``state_write_queue_depth`` (an admission
+signal) once per batch and observes ``state_queue_wait_seconds`` and
+``state_commit_seconds``; with spans recorded, each write of a caller in
+a trace records a ``state-write {store}`` span.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import concurrent.futures
+import json
+import pathlib
+import sqlite3
+import threading
+import time
+from typing import Any
+
+from tasksrunner_torch import spans
+from tasksrunner_torch._sqlite import begin_immediate, checkpoint_loop, resolve_futures
+from tasksrunner_torch.component.registry import driver
+from tasksrunner_torch.component.spec import ComponentSpec, metadata_bool, metadata_int
+from tasksrunner_torch.errors import ComponentError, EtagMismatch, StateError
+from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.state.base import StateItem, TransactionOp
+from tasksrunner_torch.tracing import current_trace, hex8
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS state (
+    key   TEXT PRIMARY KEY,
+    value TEXT NOT NULL,
+    etag  TEXT NOT NULL
+) WITHOUT ROWID;
+CREATE TABLE IF NOT EXISTS etag_seq (
+    id  INTEGER PRIMARY KEY CHECK (id = 1),
+    n   INTEGER NOT NULL
+);
+INSERT OR IGNORE INTO etag_seq(id, n) VALUES (1, 0);
+"""
+
+_SET_SQL = ("INSERT INTO state(key, value, etag) VALUES(?, ?, ?) "
+            "ON CONFLICT(key) DO UPDATE SET value=excluded.value, etag=excluded.etag")
+
+
+def _encode(key: str, value: Any) -> str:
+    """Serialised on the caller, so a bad value fails its own call and
+    never the shared batch; NaN and infinities are refused."""
+    try:
+        return json.dumps(value, separators=(",", ":"), allow_nan=False)
+    except ValueError as exc:
+        raise StateError(f"value for key {key!r} is not valid JSON: {exc}") from exc
+
+
+class _PendingWrite:
+    """One queued write and its caller's loop and future."""
+
+    __slots__ = ("op", "loop", "future", "enqueued", "ctx")
+
+    def __init__(self, op: tuple, loop: asyncio.AbstractEventLoop,
+                 future: asyncio.Future) -> None:
+        self.op = op
+        self.loop = loop
+        self.future = future
+        self.enqueued = time.monotonic()
+        #: the caller's trace, read on the loop: the writer thread has none
+        self.ctx = current_trace() if spans.active() else None
+
+
+class SqliteStateStore:
+    def __init__(self, name: str, path: str | pathlib.Path = ":memory:", *,
+                 group_commit: bool = True, cache_size: int = 0) -> None:
+        self.name = name
+        self.path = str(path)
+        self._is_file = self.path != ":memory:"
+        if self._is_file:
+            pathlib.Path(self.path).parent.mkdir(parents=True, exist_ok=True)
+        self.group_commit = bool(group_commit)
+        self.cache_size = max(0, int(cache_size))
+
+        self._conn = sqlite3.connect(self.path, check_same_thread=False)
+        self._conn.execute("PRAGMA journal_mode=WAL")
+        # WAL + NORMAL: fsync at checkpoint, not per commit
+        self._conn.execute("PRAGMA synchronous=NORMAL")
+        self._conn.execute("PRAGMA busy_timeout=5000")
+        if self._is_file:
+            self._conn.execute("PRAGMA wal_autocheckpoint=0")
+        self._conn.executescript(_SCHEMA)
+        self._conn.commit()
+
+        # the writer thread owns _conn; a file gets a reader thread with
+        # its own connection, so reads never queue behind a flush. An
+        # in-memory database is private to its connection, so there the
+        # reader is the writer.
+        self._write_exec = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"state-w-{name}")
+        if self._is_file:
+            self._rconn = sqlite3.connect(self.path, check_same_thread=False)
+            self._rconn.execute("PRAGMA busy_timeout=5000")
+            self._read_exec = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"state-r-{name}")
+        else:
+            self._rconn = self._conn
+            self._read_exec = self._write_exec
+
+        self._dirty = [False]  # set on commit, cleared by the checkpointer
+        self._ckpt_stop = threading.Event()
+        self._ckpt_thread: threading.Thread | None = None
+        if self._is_file:
+            self._ckpt_thread = threading.Thread(
+                target=checkpoint_loop, args=(self.path, self._ckpt_stop, self._dirty),
+                name=f"state-ckpt-{name}", daemon=True)
+            self._ckpt_thread.start()
+
+        self._q_lock = threading.Lock()
+        self._q_pending: list[_PendingWrite] = []
+        self._q_flushing = False
+        self._closed = False
+        self._cache: collections.OrderedDict[str, tuple[str, str]] = collections.OrderedDict()
+        self._cache_lock = threading.Lock()
+
+    # -- writes (writer thread, inside an open transaction) ----------------
+
+    @staticmethod
+    def _reserve_etags(cur: sqlite3.Cursor, count: int) -> int:
+        """Advance the store-wide sequence by ``count`` and return the
+        first value reserved: a key deleted and made again never reuses
+        an old etag."""
+        cur.execute("UPDATE etag_seq SET n = n + ? WHERE id = 1", (count,))
+        (n,) = cur.execute("SELECT n FROM etag_seq WHERE id = 1").fetchone()
+        return n - count + 1
+
+    @staticmethod
+    def _etags_needed(op: tuple) -> int:
+        if op[0] == "set":
+            return 1
+        if op[0] == "transact":
+            return sum(1 for o in op[1] if o[0] == "upsert")
+        return 0
+
+    @staticmethod
+    def _stored_etag(cur: sqlite3.Cursor, key: str) -> str | None:
+        row = cur.execute("SELECT etag FROM state WHERE key = ?", (key,)).fetchone()
+        return None if row is None else row[0]
+
+    def _apply_set(self, cur, key: str, doc: str, etag: str | None,
+                   mutations: list[tuple], alloc) -> str:
+        # refused before any write, so a coalesced batch stays clean
+        if etag is not None and self._stored_etag(cur, key) != etag:
+            raise EtagMismatch(f"etag mismatch for key {key!r}")
+        new_etag = alloc()
+        cur.execute(_SET_SQL, (key, doc, new_etag))
+        mutations.append(("set", key, doc, new_etag))
+        return new_etag
+
+    def _apply_delete(self, cur, key: str, etag: str | None, mutations: list[tuple]) -> bool:
+        stored = self._stored_etag(cur, key)
+        if etag is not None and stored != etag:
+            raise EtagMismatch(f"etag mismatch for key {key!r}")
+        if stored is None:
+            return False
+        cur.execute("DELETE FROM state WHERE key = ?", (key,))
+        mutations.append(("delete", key))
+        return True
+
+    def _apply_transact(self, cur, ops: list[tuple], mutations: list[tuple], alloc) -> None:
+        """Every etag checked against the state before the transaction,
+        then the ops applied in order."""
+        for _operation, key, _doc, etag in ops:
+            if etag is not None and self._stored_etag(cur, key) != etag:
+                raise EtagMismatch(f"etag mismatch for key {key!r}")
+        for operation, key, doc, _etag in ops:
+            if operation == "upsert":
+                self._apply_set(cur, key, doc, None, mutations, alloc)
+            else:
+                cur.execute("DELETE FROM state WHERE key = ?", (key,))
+                mutations.append(("delete", key))
+
+    def _apply_op(self, cur, op: tuple, mutations: list[tuple], alloc) -> Any:
+        if op[0] == "set":
+            return self._apply_set(cur, op[1], op[2], op[3], mutations, alloc)
+        if op[0] == "delete":
+            return self._apply_delete(cur, op[1], op[2], mutations)
+        return self._apply_transact(cur, op[1], mutations, alloc)
+
+    # -- group commit (writer thread) --------------------------------------
+
+    def _flush_writes(self) -> None:
+        """Flush what accumulated in one transaction, then submit itself
+        again if more arrived, so reads sharing the executor (an
+        in-memory store) interleave instead of waiting out a drain."""
+        with self._q_lock:
+            batch = self._q_pending
+            if not batch:
+                self._q_flushing = False
+                return
+            self._q_pending = []
+        metrics.set_gauge("state_write_queue_depth", len(batch), store=self.name)
+        self._exec_batch(batch)
+        with self._q_lock:
+            if not self._q_pending:
+                self._q_flushing = False
+                return
+            try:
+                self._write_exec.submit(self._flush_writes)
+            except RuntimeError:  # shut down: fail the stragglers
+                self._q_flushing = False
+                closed = StateError(f"state store {self.name!r} is closed")
+                resolve_futures([(row.loop, row.future, None, closed) for row in self._q_pending])
+                self._q_pending = []
+
+    def _exec_batch(self, batch: list[_PendingWrite]) -> None:
+        """One BEGIN IMMEDIATE … COMMIT for the batch; an op refused by
+        its etag fails its caller alone."""
+        results: list[tuple[Any, BaseException | None]] = [(None, None)] * len(batch)
+        mutations: list[tuple] = []
+        batch_start = time.monotonic()
+        metrics.observe_many("state_queue_wait_seconds",
+                             [batch_start - row.enqueued for row in batch], store=self.name)
+        cur = self._conn.cursor()
+        try:
+            begin_immediate(cur)
+            try:
+                need = sum(self._etags_needed(row.op) for row in batch)
+                seq = iter(range(self._reserve_etags(cur, need), 2 ** 63)) if need else iter(())
+                alloc = lambda: str(next(seq))  # noqa: E731
+                i, n = 0, len(batch)
+                while i < n:
+                    if batch[i].op[0] == "set" and batch[i].op[3] is None:
+                        # a run of unconditional upserts: one executemany,
+                        # applied in order, so a repeated key's last wins
+                        params = []
+                        while i < n and batch[i].op[0] == "set" and batch[i].op[3] is None:
+                            _, key, doc, _ = batch[i].op
+                            etag = alloc()
+                            params.append((key, doc, etag))
+                            results[i] = (etag, None)
+                            i += 1
+                        cur.executemany(_SET_SQL, params)
+                        mutations.extend(("set", *p) for p in params)
+                        continue
+                    try:
+                        results[i] = (self._apply_op(cur, batch[i].op, mutations, alloc), None)
+                    except EtagMismatch as exc:
+                        results[i] = (None, exc)
+                    i += 1
+                self._conn.commit()
+            except BaseException:
+                self._conn.rollback()
+                raise
+        except BaseException:
+            # the whole batch failed (lock deadline, disk): each op alone
+            for row in batch:
+                try:
+                    value = self._exec_single(row.op)
+                except BaseException as exc:  # noqa: BLE001 - the caller's error
+                    resolve_futures([(row.loop, row.future, None, exc)])
+                else:
+                    resolve_futures([(row.loop, row.future, value, None)])
+            return
+        self._dirty[0] = True
+        self._cache_apply(mutations)
+        end = time.monotonic()
+        metrics.observe("state_commit_seconds", end - batch_start, store=self.name)
+        if spans.active():
+            wall_end = time.time()
+            for row, (_, exc) in zip(batch, results):
+                if row.ctx is not None:
+                    spans.record_span(
+                        kind="internal", name=f"state-write {self.name}",
+                        status=200 if exc is None else 409,
+                        start=wall_end - (end - row.enqueued), duration=end - row.enqueued,
+                        attrs={"queue_wait": batch_start - row.enqueued,
+                               "service": end - batch_start, "store": self.name},
+                        trace_id=row.ctx.trace_id, span_id=hex8(), parent_id=row.ctx.span_id)
+        resolve_futures([(row.loop, row.future, value, exc)
+                         for row, (value, exc) in zip(batch, results)])
+
+    def _exec_single(self, op: tuple) -> Any:
+        """One op in its own transaction (writer thread)."""
+        mutations: list[tuple] = []
+        cur = self._conn.cursor()
+        begin_immediate(cur)
+        try:
+            value = self._apply_op(cur, op, mutations,
+                                   lambda: str(self._reserve_etags(cur, 1)))
+            self._conn.commit()
+        except BaseException:
+            self._conn.rollback()
+            raise
+        self._dirty[0] = True
+        self._cache_apply(mutations)
+        return value
+
+    async def _submit_write(self, op: tuple) -> Any:
+        loop = asyncio.get_running_loop()
+        if not self.group_commit:
+            return await loop.run_in_executor(self._write_exec, self._exec_single, op)
+        row = _PendingWrite(op, loop, loop.create_future())
+        with self._q_lock:
+            if self._closed:
+                raise StateError(f"state store {self.name!r} is closed")
+            self._q_pending.append(row)
+            if not self._q_flushing:
+                try:
+                    self._write_exec.submit(self._flush_writes)
+                except RuntimeError:
+                    self._q_pending.remove(row)
+                    raise
+                self._q_flushing = True
+        return await row.future
+
+    # -- read cache --------------------------------------------------------
+
+    def _cache_get(self, key: str) -> tuple[str, str] | None:
+        if not self.cache_size:
+            return None
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is not None:
+                self._cache.move_to_end(key)
+            return hit
+
+    def _cache_apply(self, mutations: list[tuple]) -> None:
+        """Write-through, after COMMIT: a rolled-back batch never reaches it."""
+        if not self.cache_size or not mutations:
+            return
+        with self._cache_lock:
+            for m in mutations:
+                if m[0] == "set":
+                    self._cache[m[1]] = (m[2], m[3])
+                    self._cache.move_to_end(m[1])
+                else:
+                    self._cache.pop(m[1], None)
+            while len(self._cache) > self.cache_size:
+                self._cache.popitem(last=False)
+
+    # -- the store's operations --------------------------------------------
+
+    async def _run_read(self, fn, *args):
+        return await asyncio.get_running_loop().run_in_executor(self._read_exec, fn, *args)
+
+    def _get_sync(self, key: str):
+        return self._rconn.execute(
+            "SELECT value, etag FROM state WHERE key = ?", (key,)).fetchone()
+
+    async def get(self, key: str) -> StateItem | None:
+        row = self._cache_get(key) or await self._run_read(self._get_sync, key)
+        # parsed per read: a caller may change what it gets back
+        return None if row is None else StateItem(key=key, value=json.loads(row[0]), etag=row[1])
+
+    async def bulk_get(self, keys: list[str]) -> list[StateItem | None]:
+        rows: list = [self._cache_get(key) for key in keys]
+        misses = [i for i, row in enumerate(rows) if row is None]
+        if misses:
+            found = await self._run_read(lambda: [self._get_sync(keys[i]) for i in misses])
+            for i, row in zip(misses, found):
+                rows[i] = row
+        return [None if row is None else StateItem(key=key, value=json.loads(row[0]), etag=row[1])
+                for key, row in zip(keys, rows)]
+
+    async def set(self, key: str, value: Any, *, etag: str | None = None) -> str:
+        return await self._submit_write(("set", key, _encode(key, value), etag))
+
+    async def delete(self, key: str, *, etag: str | None = None) -> bool:
+        return await self._submit_write(("delete", key, etag))
+
+    async def transact(self, ops: list[TransactionOp]) -> None:
+        await self._submit_write(("transact", [
+            (op.operation, op.key,
+             _encode(op.key, op.value) if op.operation == "upsert" else None, op.etag)
+            for op in ops]))
+
+    async def keys(self, *, prefix: str = "") -> list[str]:
+        def read() -> list[str]:
+            rows = self._rconn.execute("SELECT key FROM state ORDER BY key").fetchall()
+            return [r[0] for r in rows if r[0].startswith(prefix)]
+        return await self._run_read(read)
+
+    def close(self) -> None:
+        """Drain the write queue, stop the checkpointer, fold the WAL
+        back into the file and close both connections. Synchronous, so
+        it runs without a loop too."""
+        with self._q_lock:
+            if self._closed:
+                return
+            self._closed = True
+            if self._q_pending and not self._q_flushing:
+                self._write_exec.submit(self._flush_writes)
+                self._q_flushing = True
+        self._write_exec.shutdown(wait=True)
+        if self._read_exec is not self._write_exec:
+            self._read_exec.shutdown(wait=True)
+        self._ckpt_stop.set()
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join(timeout=5.0)
+        if self._is_file:
+            try:
+                self._conn.execute("PRAGMA wal_checkpoint(TRUNCATE)")
+            except sqlite3.Error:  # best effort: the WAL stays valid
+                pass
+        if self._rconn is not self._conn:
+            self._rconn.close()
+        self._conn.close()
+
+
+@driver("state.sqlite", "state.azure.cosmosdb", "state.postgresql")
+def _sqlite_state(spec: ComponentSpec, metadata: dict[str, str]) -> SqliteStateStore:
+    """``databasePath`` picks the file (in memory without one);
+    ``groupCommit`` (true) and ``readCacheSize`` (0, off) as above.
+    ``shards`` and ``replicas`` other than 1 are not ported yet."""
+    for knob in ("shards", "replicas"):
+        if metadata_int(metadata, knob, 1) != 1:
+            raise ComponentError(
+                f"state store {spec.name!r}: {knob} other than 1 is not ported yet")
+    return SqliteStateStore(
+        spec.name, metadata.get("databasePath", ":memory:"),
+        group_commit=metadata_bool(metadata, "groupCommit", True),
+        cache_size=metadata_int(metadata, "readCacheSize", 0))

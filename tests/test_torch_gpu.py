@@ -448,3 +448,53 @@ async def test_scorer_on_the_runtime_stores_a_saved_task(card):
     assert got["priority"] == want["priority"]
     assert abs(got["confidence"] - want["confidence"]) <= 1e-3
     assert flash.launches > before
+
+
+def _bf16_steps(got, want):
+    """The largest |got − want| in bf16 steps, each element's step taken
+    at its magnitude or at want's rms, whichever is larger: a sum that
+    cancels to near 0 is as uncertain as f32 sums in another order make
+    it, far more than a bf16 step of its own tiny value."""
+    want = want.float()
+    mag = torch.maximum(want.abs(), want.square().mean().sqrt())
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - want).abs() / step).max().item()
+
+
+def _rounded_twice(x, w, parts: int = 8):
+    """The product with its K split in ``parts``, each partial rounded to
+    bf16 and summed in bf16: what a reduced-precision reduction does."""
+    out = None
+    for xs, ws in zip(x.chunk(parts, dim=1), w.chunk(parts, dim=0)):
+        part = (xs.float() @ ws.float()).to(torch.bfloat16)
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("m, k, n", [(32, 128, 128), (256, 128, 512), (1024, 512, 128),
+                                     (16384, 1024, 1024), (16384, 1024, 4096),
+                                     (16384, 4096, 1024)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+def test_bf16_activation_product_rounds_once(card, monkeypatch, m, k, n, reduced):
+    """C1: with bf16 activations, model._matmul (a bf16 cuBLAS product,
+    model.py:152-153) against the f32 product of the same bf16 inputs
+    rounded once to bf16 (tasksrunner/ml/model.py:96-102:
+    preferred_element_type=float32, then one cast), with cuBLAS's
+    reduced-precision reduction allowed and not, at the served shapes
+    (m = b·32, k 128 / 512) and the bench shapes (k 1024 / 4096): at most
+    one bf16 step apart (the f32 sums run in another order), where the
+    same product with its partial sums rounded to bf16 is more."""
+    monkeypatch.delenv("TASKSRUNNER_ACT_F32", raising=False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", reduced)
+    gen = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(card, torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(card, torch.bfloat16)
+    once = (x.float() @ w.float()).to(torch.bfloat16)
+    got = model._matmul(x, w)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_steps(got, once) <= 1.0
+    # the measure sees a product whose partial sums were rounded to bf16
+    assert _bf16_steps(_rounded_twice(x, w), once) > 1.0

@@ -1,6 +1,7 @@
 """The port stands alone: tasksrunner_torch, chip_smoke.py and the port's
 kernel sweep (scripts/sweep_torch_flash.py) import neither JAX nor
-anything of the JAX package ``tasksrunner``."""
+anything of the JAX package ``tasksrunner``, nor ``aiohttp`` or ``yaml``,
+which the card's machine does not have."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "tasksrunner")
+FORBIDDEN = ("jax", "jaxlib", "tasksrunner", "aiohttp", "yaml")
 
 
 def _port_sources():
@@ -25,7 +26,7 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
         "tasksrunner_torch." + ".".join(p.relative_to(REPO / "tasksrunner_torch")
                                         .with_suffix("").parts)
         for p in (REPO / "tasksrunner_torch").rglob("*.py")
-        if p.name != "__init__.py")
+        if p.name not in ("__init__.py", "__main__.py"))
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}: importlib.import_module(name)\n"
@@ -33,10 +34,13 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
-    # every module, the request path's observability among them
+    # every module, the request path's observability and the sidecar among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
-                 "tasksrunner_torch.tracing"):
+                 "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
+                 "tasksrunner_torch.runtime", "tasksrunner_torch.cli",
+                 "tasksrunner_torch.state.sqlite", "tasksrunner_torch.pubsub.sqlite",
+                 "tasksrunner_torch.component.blockyaml"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
