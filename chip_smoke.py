@@ -69,6 +69,27 @@ exit, traceback) at the first phase that does not hold:
    two-hop ``/score`` and the restart's drain time beside the card's
    name and power limit; launch counts set to 0 just before and read
    just after;
+8c. orchestrator: ``python -m tasksrunner_torch run`` over a run file
+   whose one app is the scorer, 1 to 3 replicas (each a ``host`` process
+   on the card) by the broker file's backlog, +1 per 16 events, a 3 s
+   cooldown and liveness probes every second, beside a publisher's
+   sidecar in the same registry: 32 events on one replica (its ceiling
+   held at 1 by a ``POST /admin/apps/…/scale``, then put back); a burst of
+   192 and the scaler's decision, each new replica's ready line and first
+   stored score (publishing on while they start, so the backlog holds);
+   192 events on three replicas; 32 ``/score`` calls through the
+   publisher's sidecar answered by two replicas or more; ``kill -9`` of
+   replica 1 in a burst of 64 and its restart, a ``POST
+   /admin/apps/…/scale`` holding three replicas from the kill until that
+   burst has drained, another setting the floor back to 1, and the
+   scale-in after the cooldown; then SIGTERM. Every event
+   stored once, no dead letter, each stored score within 2e-2 of the
+   scorer's in this process; the replicas' contexts on the card while
+   they serve and none after the stop, none left in the registry; each
+   replica that stopped cleanly logged B1 launches equal to what its last
+   ``/ml/stats`` gives. Prints events/s on one and three replicas,
+   event-to-stored, spawn → ready, crash → ready, the scale-in, ``/score``
+   and the card's memory;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -130,6 +151,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1533,6 +1555,466 @@ def phase_sidecar(smi: str) -> int:
     return launched["flash_fwd"]
 
 
+# the orchestrator phase: python -m tasksrunner_torch run with the scorer
+# as its one app, 1 to 3 replicas by the broker's backlog (+1 per 16
+# events), a cooldown of 3 s and liveness probes every second
+ORCH_MAX, ORCH_PER_REPLICA, ORCH_COOLDOWN_S = 3, 16, 3
+ORCH_FIRST, ORCH_BURST, ORCH_CALLS, ORCH_CRASH = 32, 192, 32, 64
+# a killed replica's claimed events come back after this lease (the
+# sample's broker names none: 30 s by default)
+ORCH_CLAIM_LEASE_S = 5
+SCORE_TOL = 2e-2  # §2's forward tolerance
+DELIVERED_200 = "pubsub_delivery{route=/on-task-saved,status=200}"
+APP_ID = "priority-scorer"
+SCALED_OUT = f"scaling {APP_ID} out: "
+SCALED_IN = f"scaling {APP_ID} in: "
+
+
+class _Lines:
+    """A process's output lines, each with the monotonic time it was read."""
+
+    def __init__(self, stream, log: Path | None = None) -> None:
+        self.lines: list[tuple[float, str]] = []
+        self._log = open(log, "w") if log is not None else None
+        self._thread = threading.Thread(target=self._read, args=(stream,), daemon=True)
+        self._thread.start()
+
+    def _read(self, stream) -> None:
+        for line in stream:
+            self.lines.append((time.monotonic(), line.rstrip("\n")))
+            if self._log is not None:
+                self._log.write(line)
+                self._log.flush()
+
+    def find(self, text: str) -> list[tuple[float, str]]:
+        return [(t, line) for t, line in list(self.lines) if text in line]
+
+    def join(self) -> None:
+        self._thread.join(timeout=30)
+        if self._log is not None:
+            self._log.close()
+
+
+class _StoreWatch:
+    """Polls the scores store file every 10 ms and notes when each key
+    first shows: an event's stored time, as another process sees it."""
+
+    def __init__(self, path: Path) -> None:
+        self.path = path
+        self.first_seen: dict[str, float] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        while not self._stop.is_set():
+            if self.path.exists():
+                try:
+                    with contextlib.closing(sqlite3.connect(self.path, timeout=1)) as conn:
+                        keys = [row[0] for row in conn.execute("SELECT key FROM state")]
+                except sqlite3.Error:
+                    keys = []
+                now = time.monotonic()
+                for key in keys:
+                    self.first_seen.setdefault(key.split("||", 1)[1], now)
+            self._stop.wait(0.01)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def _card_apps() -> tuple[list[tuple[int, str]], str]:
+    """nvidia-smi's compute processes, (pid, used memory) each, and the
+    card's memory in use."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return [(int(a.split(",")[0]), a.split(",", 1)[1].strip()) for a in apps if a], used
+
+
+def _check_on_card(pids: list[int], what: str, baseline: int) -> dict:
+    """Each pid holds a context on the card. Where nvidia-smi shows this
+    machine's pids, each must be listed; where it hides them (a container
+    may list every process as pid 1), the listing must hold one context per
+    pid beside the ``baseline`` ones listed before the phase (this
+    process's, once it has used the card)."""
+    apps, used = _card_apps()
+    listed = {pid for pid, _ in apps}
+    if listed & set(pids):
+        check(set(pids) <= listed, f"{what}: replicas {pids} not all on the card: {apps}")
+    else:
+        check(len(apps) == len(pids) + baseline,
+              f"{what}: {len(apps)} compute processes on the card, not {len(pids)} replicas "
+              f"beside {baseline}: {apps}")
+    return {"replica_pids": pids, "compute_apps": [f"{p}, {m}" for p, m in apps],
+            "pids_visible": bool(listed & set(pids)), "memory_used": used}
+
+
+class _Orchestrated:
+    """``python -m tasksrunner_torch run`` as a subprocess, its output and
+    its errors read line by line, and its admin API."""
+
+    def __init__(self, run_file: Path, logs: Path, device: str | None) -> None:
+        device_args = [] if device is None else ["--device", device]
+        self.proc = subprocess.Popen([sys.executable, "-m", "tasksrunner_torch", "run",
+                                      str(run_file), *device_args], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out = _Lines(self.proc.stdout)
+        self.err = _Lines(self.proc.stderr, logs / "orchestrator.log")
+        self.admin_url: str | None = None
+
+    def ready(self, index: int) -> list[tuple[float, dict]]:
+        """Each incarnation of replica ``index``'s ready line: (time, fields)."""
+        return [(t, dict(kv.split("=", 1) for kv in line.split(" ready ", 1)[1].split()))
+                for t, line in self.out.find(f"[{APP_ID}·{index}] ready ")]
+
+    def spawned(self, index: int) -> list[tuple[float, int]]:
+        return [(t, int(line.rsplit("(pid ", 1)[1].rstrip(")")))
+                for t, line in self.err.find(f"started replica {APP_ID}·{index} (pid ")]
+
+    async def admin(self, method: str, path: str, body=None) -> dict:
+        port = int(self.admin_url.rsplit(":", 1)[1])
+        status, _, reply = await _http(port, method, "/admin" + path,
+                                       json.dumps(body).encode() if body is not None else b"")
+        check(status == 200, f"admin {method} {path} answered {status}: {reply!r}")
+        return json.loads(reply)
+
+    async def replicas(self) -> list[dict]:
+        return (await self.admin("GET", "/apps"))["apps"][0]["replicas"]
+
+    def stop(self) -> int:
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=120)
+        self.out.join()
+        self.err.join()
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _backlog(path: Path) -> int:
+    with contextlib.closing(sqlite3.connect(path, timeout=5)) as conn:
+        return conn.execute("SELECT COUNT(*) FROM deliveries WHERE grp = ? AND done = 0",
+                            (APP_ID,)).fetchone()[0]
+
+
+async def _delivered(sidecar_port: int) -> float:
+    status, _, body = await _http(sidecar_port, "GET", "/v1.0/metadata")
+    check(status == 200, f"/v1.0/metadata answered {status}")
+    return json.loads(body)["metrics"].get(DELIVERED_200, 0)
+
+
+def _mib(used: str) -> float:
+    return float(used.split()[0])
+
+
+async def _orchestrator_phase(data: Path, device: str | None = None) -> dict:
+    """The phase's run; ``device`` goes to ``run`` as ``--device`` and
+    places the reference scores (None: the card)."""
+    comps, registry = data / "components", data / "apps.json"
+    _write_components(comps, data)
+    with open(comps / "pubsub-redis.yaml", "a") as f:
+        f.write(f"  - name: claimLeaseSeconds\n    value: \"{ORCH_CLAIM_LEASE_S}\"\n")
+    run_file = data / "run.yaml"
+    run_file.write_text(
+        f"resources_path: {comps}\nregistry_file: {registry}\napps:\n"
+        f"  - app_id: {APP_ID}\n    module: tasksrunner_torch.service:make_app\n"
+        "    health: { interval_seconds: 1 }\n"
+        f"    scale:\n      min_replicas: 1\n      max_replicas: {ORCH_MAX}\n"
+        f"      cooldown_seconds: {ORCH_COOLDOWN_S}\n      rules:\n"
+        f"        - type: pubsub-backlog\n          metadata:\n            component: {PUBSUB}\n"
+        f"            topic: {TOPIC}\n            messageCount: \"{ORCH_PER_REPLICA}\"\n")
+    procs = _Processes(data)
+    publisher = App("some-api")
+    baseline = len(_card_apps()[0])
+    orch = _Orchestrated(run_file, data, device)
+    phase_t = time.monotonic()
+    watch = _StoreWatch(data / "scores.db")
+    published: dict[str, float] = {}  # task id → when it was published
+    tasks_by_id: dict[str, dict] = {}
+    last_stats: dict[int, dict] = {}  # replica pid → its last /ml/stats
+    n_events = [0]
+    try:
+        pub_sidecar = _free_port()
+        pub_app_port = await cli.start_app(publisher, sidecar_port=pub_sidecar)
+        await procs.start("publisher-sidecar", "sidecar", "--app-id", "some-api", "--app-port",
+                          str(pub_app_port), "--port", str(pub_sidecar), "--components",
+                          str(comps), "--registry-file", str(registry),
+                          *([] if device is None else ["--device", device]))
+
+        async def publish(n: int, prefix: str) -> dict[str, float]:
+            tasks = [_saved_task(prefix, n_events[0] + i) for i in range(n)]
+            n_events[0] += n
+            tasks_by_id.update((t["taskId"], t) for t in tasks)
+            sent = {}
+
+            async def one(task: dict) -> None:
+                sent[task["taskId"]] = time.monotonic()
+                await asyncio.wait_for(publisher.client.publish_event(PUBSUB, TOPIC, task), 60)
+            await asyncio.gather(*(one(t) for t in tasks))
+            published.update(sent)
+            return sent
+
+        async def drained(sent: dict[str, float], seconds: float) -> dict:
+            await _until(lambda: all(k in watch.first_seen for k in sent), seconds,
+                         f"events not stored: {sum(k in watch.first_seen for k in sent)} of "
+                         f"{len(sent)}")
+            first = min(sent.values())
+            last = max(watch.first_seen[k] for k in sent)
+            return {"events": len(sent), "drain_s": last - first,
+                    "events_per_s": len(sent) / (last - first),
+                    "event_to_stored_ms": _p50_max_ms(
+                        [watch.first_seen[k] - t for k, t in sent.items()])}
+
+        async def stats(app_port: int) -> dict:
+            status, _, body = await _http(app_port, "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats answered {status}")
+            return json.loads(body)
+
+        async def until_ready(index: int, incarnation: int, seconds: float) -> tuple[float, dict]:
+            await _until(lambda: len(orch.ready(index)) >= incarnation, seconds,
+                         f"replica {index} printed no ready line (incarnation {incarnation})")
+            t, fields = orch.ready(index)[incarnation - 1]
+            while not (await stats(int(fields["app_port"])))["ready"]:
+                await asyncio.sleep(0.05)
+            return t, fields
+
+        async def sustain(until, what: str, seconds: float = 120) -> None:
+            """Publish while ``until()`` is false, keeping the backlog at
+            ORCH_MAX × ORCH_PER_REPLICA or above, so that the scaler
+            holds the replicas it asked for (traffic that goes on)."""
+            deadline = time.monotonic() + seconds
+            while not await until():
+                check(time.monotonic() < deadline, what)
+                if _backlog(data / "broker.db") < ORCH_MAX * ORCH_PER_REPLICA:
+                    await publish(ORCH_PER_REPLICA, "or-sustain")
+                await asyncio.sleep(0.05)
+
+        # 1. replica 0 alone
+        ready0_t, fields0 = await until_ready(0, 1, 600)
+        orch.admin_url = json.loads((data / "orchestrator.json").read_text())["admin_url"]
+        spawn_ready_s = {"0": ready0_t - orch.spawned(0)[0][0]}
+        # the ceiling at 1 while they drain (32 events would ask for 2)
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"max_replicas": 1})
+        one_replica = await drained(await publish(ORCH_FIRST, "or-first"), 60)
+
+        # 2. the ceiling back at 3, then a burst: the scaler's decision, each
+        # new replica's ready line and first score
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"max_replicas": ORCH_MAX})
+        check(not orch.err.find(SCALED_OUT), "a scale-out under the ceiling of 1")
+        burst_t = time.monotonic()
+        burst = await publish(ORCH_BURST, "or-burst")
+        await _until(lambda: orch.err.find(SCALED_OUT), 60, "no scale-out decision")
+        decision_t, decision = orch.err.find(SCALED_OUT)[0]
+        ports: dict[int, int] = {0: int(fields0["sidecar_port"])}
+        first_score: dict[int, float] = {}
+
+        async def all_serving() -> bool:
+            for i in range(1, ORCH_MAX):
+                if i not in ports and orch.ready(i):
+                    ports[i] = int(orch.ready(i)[0][1]["sidecar_port"])
+                if i in ports and i not in first_score and await _delivered(ports[i]) > 0:
+                    first_score[i] = time.monotonic()
+            return len(first_score) == ORCH_MAX - 1
+
+        await sustain(all_serving, "the new replicas did not all serve")
+        # 2b. at once, before the cooldown could take a replica: the same
+        # burst on three replicas, the card's processes read while they serve
+        three = await publish(ORCH_BURST, "or-three")
+        replicas = await orch.replicas()
+        check(len(replicas) == ORCH_MAX and all(r["running"] for r in replicas),
+              f"the scaler did not reach {ORCH_MAX} replicas: {replicas}")
+        on_card = _check_on_card([r["pid"] for r in replicas], "while serving", baseline)
+        three_replicas = await drained(three, 120)
+        revisions = (await orch.admin("GET", f"/apps/{APP_ID}/revisions"))["revisions"]
+        check([r["reason"] for r in revisions] == ["initial deploy"] + ["scale update"] * 2,
+              f"scaling is no revision, a scale update is: {revisions}")
+        for i in range(1, ORCH_MAX):
+            spawn_ready_s[str(i)] = orch.ready(i)[0][0] - orch.spawned(i)[0][0]
+        scale_out = {
+            "publish_to_decision_s": decision_t - burst_t,
+            "decision": decision.split(" INFO ")[-1],
+            "decision_to_ready_s": {str(i): orch.ready(i)[0][0] - decision_t
+                                    for i in range(1, ORCH_MAX)},
+            "decision_to_first_score_s": {str(i): first_score[i] - decision_t
+                                          for i in range(1, ORCH_MAX)},
+            "burst": await drained(burst, 120)}
+
+        # 3. /score through the publisher's sidecar, round robin over the
+        # replicas, once no event is left to score
+        await _until(lambda: all(k in watch.first_seen for k in published), 120,
+                     "not every event was stored")
+        before = {r["index"]: (await stats(r["app_port"]))["completed"] for r in replicas}
+        score_tasks = [_saved_task("or-score", i) for i in range(ORCH_CALLS)]
+
+        async def score(task: dict):
+            sent = time.monotonic()
+            reply = await asyncio.wait_for(publisher.client.invoke_method(
+                APP_ID, "score", data=task), 60)
+            return reply, time.monotonic() - sent
+
+        results = await asyncio.gather(*(score(t) for t in score_tasks))
+        for reply, _ in results:
+            check(reply.status == 200, f"/score answered {reply.status}: {reply.body!r}")
+        answered = {r["index"]: (await stats(r["app_port"]))["completed"] - before[r["index"]]
+                    for r in replicas}
+        check(sum(answered.values()) == ORCH_CALLS and sum(n > 0 for n in answered.values()) >= 2,
+              f"/score calls per replica {answered}: not spread over two or more")
+
+        # 4. kill -9 replica 1 in a burst; its supervisor restarts it. An
+        # operator's scale update holds the three from before the kill to
+        # after the drain (the killed replica's claimed events wait out
+        # their lease), so that no scale-in comes first and the stats read
+        # after the drain are each replica's last
+        crash = await publish(ORCH_CRASH, "or-crash")
+        pinned = (await orch.admin("POST", f"/apps/{APP_ID}/scale",
+                                   {"min_replicas": ORCH_MAX}))["revision"]
+        replicas = await orch.replicas()
+        check(pinned["revision"] == 4 and len(replicas) == ORCH_MAX,
+              f"the scale update answered {pinned}: {replicas}")
+        victim = replicas[1]
+        last_stats[victim["pid"]] = await stats(victim["app_port"])
+        os.kill(victim["pid"], signal.SIGKILL)
+        killed_t = time.monotonic()
+        back_t, fields1 = await until_ready(1, 2, 120)
+        check(orch.spawned(1)[-1][1] != victim["pid"], "replica 1 kept its pid")
+        crashed = {"killed_pid": victim["pid"], "exit_to_ready_s": back_t - killed_t,
+                   "burst": await drained(crash, 120)}
+        await _until(lambda: all(k in watch.first_seen for k in published), 120,
+                     "not every event was stored")
+
+        # 5. after the drain, every replica's stats; then the floor back at 1
+        # and the scale-in after the cooldown
+        replicas = await orch.replicas()
+        check(len(replicas) == ORCH_MAX and all(r["running"] and r["app_port"]
+                                                for r in replicas),
+              f"a replica is down after the drain: {replicas}")
+        for r in replicas:
+            last_stats[r["pid"]] = await stats(r["app_port"])
+        restarts = {r["index"]: [r["restarts"], r["health_restarts"]] for r in replicas}
+        check(restarts == {0: [0, 0], 1: [1, 0], 2: [0, 0]},
+              f"restarts other than the killed replica's: {replicas}")
+        released_t = time.monotonic()
+        released = (await orch.admin("POST", f"/apps/{APP_ID}/scale",
+                                     {"min_replicas": 1}))["revision"]
+        check(released["revision"] == 5 and released["min_replicas"] == 1,
+              f"the scale update answered {released}")
+        await _until(lambda: orch.err.find(SCALED_IN), 60, "no scale-in")
+        scale_in_decision_s = orch.err.find(SCALED_IN)[0][0] - released_t
+        deadline = time.monotonic() + 60
+        while len(await orch.replicas()) > 1:
+            check(time.monotonic() < deadline, "the app did not scale in to 1")
+            await asyncio.sleep(0.05)
+        scaled_in = {"decision_s": scale_in_decision_s,
+                     "one_replica_s": time.monotonic() - released_t}
+        revisions = (await orch.admin("GET", f"/apps/{APP_ID}/revisions"))["revisions"]
+        reasons = [r["reason"] for r in revisions]
+        check(reasons == ["initial deploy"] + ["scale update"] * 4, f"revisions {reasons}")
+        last_pid = (await orch.replicas())[0]["pid"]
+
+        # 6. SIGTERM: every replica stops and leaves the card and the registry
+        rc = orch.stop()
+        check(rc == 0, f"the orchestrator exited {rc}: "
+                       f"{(data / 'orchestrator.log').read_text()[-3000:]}")
+        after = _check_on_card([], "after the stop", baseline)
+        procs.stop("publisher-sidecar")
+        left = json.loads(registry.read_text())
+        check(left == {}, f"entries left in the registry: {left}")
+        counted = {}
+        for _, line in orch.out.find(" kernel launches app=priority-scorer pid="):
+            pid, launches = line.split(" pid=", 1)[1].split(" ", 1)
+            counted[int(pid)] = json.loads(launches)
+        serving = [p for p in last_stats if p != victim["pid"]]
+        check(sorted(counted) == sorted(serving),
+              f"kernel launch lines for {sorted(counted)}, replicas {sorted(serving)}")
+        cards = torch.cuda.device_count()
+        expected = {p: expected_serve_launches(last_stats[p], cards) for p in serving}
+        check(all(counted[p]["flash_fwd"] == expected[p] for p in serving),
+              f"B1 launches {counted} != expected {expected}")
+        check(all(v == 0 for c in counted.values() for k, v in c.items() if k != "flash_fwd"),
+              f"a replica launched a backward or ring kernel: {counted}")
+        check(last_pid in counted, "the last replica logged no launch counts")
+        watch.stop()
+
+        # every event stored once under its key, no dead letter
+        keys = _store_keys(data / "scores.db")
+        check(keys == sorted(f"{APP_ID}||{k}" for k in published),
+              f"the store file holds {len(keys)} keys, not {len(published)}")
+        rows = [r for r in _broker_rows(data / "broker.db") if r[1] == APP_ID]
+        check(len(rows) == len(published) and all(r[3] == 1 for r in rows),
+              f"deliveries not all acked once: {len(rows)} rows, "
+              f"{sum(r[3] == 2 for r in rows)} dead letters")
+        # the stored scores against the scorer's math in this process
+        with contextlib.closing(sqlite3.connect(data / "scores.db")) as conn:
+            stored = {k.split("||", 1)[1]: json.loads(v)
+                      for k, v in conn.execute("SELECT key, value FROM state")}
+        ref_device = torch.device("cuda", 0) if device is None else torch.device(device)
+        ids = sorted(stored)
+        probs = service.batch_probs(
+            [init_params(SERVED, 0, ref_device)], [ref_device],
+            np.stack([service.task_tokens(tasks_by_id[k], SERVED) for k in ids]), cfg=SERVED)
+        worst = 0.0
+        for row, k in zip(probs, ids):
+            label = service.PRIORITY_LABELS.index(stored[k]["priority"])
+            check(row[label] >= row.max() - SCORE_TOL,
+                  f"{k}: stored {stored[k]} but the scorer gives {row.tolist()}")
+            worst = max(worst, abs(float(row[label]) - stored[k]["confidence"]))
+        check(worst <= SCORE_TOL, f"stored confidence off by {worst}")
+        per_replica_mib = (_mib(on_card["memory_used"]) - _mib(after["memory_used"])) / ORCH_MAX
+        return {"spawn_to_ready_s": spawn_ready_s, "one_replica": one_replica,
+                "scale_out": scale_out, "three_replicas": three_replicas,
+                "score_ms": _p50_max_ms([s for _, s in results]), "score_per_replica": answered,
+                "crash": crashed, "restarts_and_health_restarts": restarts,
+                "scale_in_after_floor_released": scaled_in,
+                "scaler": [(t - phase_t, line.split(" INFO ")[-1]) for t, line
+                           in orch.err.find(f"scaling {APP_ID} ")],
+                "revisions": [(r["created"] - revisions[0]["created"], r["reason"],
+                               {k: r[k] for k in r if k.endswith("_replicas")})
+                              for r in revisions],
+                "on_card": on_card, "after_stop": after,
+                "card_memory_per_replica_mib": per_replica_mib,
+                "events": len(published), "stored_keys": len(keys), "dead_letters": 0,
+                "max_abs_err_confidence": worst, "launches": {str(p): c["flash_fwd"]
+                                                              for p, c in counted.items()},
+                "expected_launches": {str(p): e for p, e in expected.items()}}
+    except BaseException:
+        # what the orchestrator and its replicas said, for the failure
+        for t, line in sorted(orch.err.lines + [x for x in orch.out.lines if any(
+                w in x[1] for w in (" ready ", "WARNING", "ERROR", "Traceback", "Error"))]
+                )[-80:]:
+            print(f"{t - phase_t:9.3f} {line}", file=sys.stderr)
+        raise
+    finally:
+        watch.stop()
+        orch.kill()
+        for entry in (json.loads(registry.read_text()).get(APP_ID, [])
+                      if registry.exists() else []):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(entry["pid"], signal.SIGKILL)  # replicas a failed run left behind
+        procs.kill_all()
+        await publisher.stop()
+
+
+def phase_orchestrator(smi: str) -> int:
+    """The scorer supervised and autoscaled by ``python -m
+    tasksrunner_torch run``: returns B1's launches in its replicas."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-orchestrator-") as data:
+        result = asyncio.run(_orchestrator_phase(Path(data)))
+    launched = sum(result["launches"].values())
+    emit({"phase": "orchestrator", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched})
+    check(launched > 0, "the orchestrated replicas launched no flash kernel")
+    return launched
+
+
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
               mesh: Mesh | None = None):
     """One train step from a copy of ``params``: (new params, loss)."""
@@ -2100,7 +2582,8 @@ def main() -> int:
     phase_gradient()
     phase_ring()
     phase_forward()
-    launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)}
+    launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)
+                + phase_orchestrator(smi)}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()

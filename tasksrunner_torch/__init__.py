@@ -36,7 +36,11 @@ each counterpart is easy to find:
   ``invoke`` (the app-id resolver), ``security`` (grants),
   ``admission``, ``tracing``, ``spans`` (the runtime's sqlite trace
   file) and ``cloudevents``
-* ``cli``         – ``python -m tasksrunner_torch host|serve|sidecar``
+* ``orchestrator`` – ``tasksrunner/orchestrator/``: run files, supervised
+  and autoscaled replicas, the control-plane lease (``state.lease``) and
+  the admin API
+* ``cli``         – ``python -m tasksrunner_torch host|serve|sidecar|run``
+  and the orchestrator's admin verbs
 * ``graft_entry`` – ``__graft_entry__.py``'s ``entry`` and its
   self-verifying ``dryrun_multichip`` over spawned ranks
 

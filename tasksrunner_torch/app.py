@@ -165,7 +165,8 @@ class _Route:
         self.method = method  # "*" for any
         self.path = path
         self.handler = handler
-        #: "http", or "subscription" for a topic's delivery route
+        #: "http", or "subscription" for a topic's delivery route; the
+        #: sidecar's "exempt" (never shed) and "peer" (a peer's token passes)
         self.kind = kind
         self.segments = _segments(path)
 

@@ -36,6 +36,8 @@ DECLARED = frozenset({
     "TASKSRUNNER_ADMISSION_MAX_INFLIGHT",  # int, 64: in-flight requests at score 1.0
     "TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS",  # float, 0.25: event-loop lag at score 1.0
     "TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",  # int, 512: write-queue depth at score 1.0
+    "TASKSRUNNER_REPL_LEASE_SECONDS",  # float, 5: a lease's life (state/lease.py)
+    "TASKSRUNNER_RESHARD",         # bool, off: on is refused, not ported yet (ROADMAP A20)
 })
 
 

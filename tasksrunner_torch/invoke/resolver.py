@@ -231,6 +231,11 @@ class NameResolver:
             self._refresh()
         return list(self._cache.get(app_id, ()))
 
+    def known_apps(self) -> list[str]:
+        """Every app id with a registered replica."""
+        self._refresh()
+        return sorted({*self._static, *self._cache})
+
     def resolve(self, app_id: str) -> AppAddress:
         replicas = self.resolve_all(app_id)
         if not replicas:

@@ -1,7 +1,10 @@
 """Counters, gauges and histograms for the serving plane: the part of
 ``tasksrunner.observability.metrics`` the batcher and the benches call
 (``inc``, ``set_gauge``, ``observe``, ``observe_many``, ``snapshot``,
-``snapshot_histograms`` and :func:`estimate_percentile`).
+``snapshot_histograms`` and :func:`estimate_percentile`), and the merges
+of several replicas' snapshots the orchestrator reads
+(:func:`merge_histogram_snapshots`, :func:`merge_flat_snapshots`,
+:func:`summarize_histograms`).
 
 Each batcher keeps its own registry (``GET /metrics``); :data:`metrics`
 is the process-wide one, which the admission controller writes
@@ -27,7 +30,7 @@ import os
 import threading
 import time
 from bisect import bisect_left
-from typing import Any
+from typing import Any, Iterable
 
 from tasksrunner_torch.tracing import current_trace
 
@@ -156,6 +159,20 @@ class MetricsRegistry:
         out["uptime_seconds"] = time.time() - self.started_at
         return out
 
+    def snapshot_kinds(self) -> dict[str, str]:
+        """Each flat name of :meth:`snapshot` (labels left out) → "counter"
+        or "gauge", what :func:`merge_flat_snapshots` sums or takes the
+        largest of: a histogram's ``_count`` and ``_sum`` are counters,
+        its ``_max`` a gauge."""
+        kinds = {"uptime_seconds": "gauge"}
+        with self._lock:
+            kinds.update({n: "counter" for n, _ in self._counters})
+            kinds.update({n: "gauge" for n, _ in self._gauges})
+            for n, _ in self._histograms:
+                kinds.update({f"{n}_count": "counter", f"{n}_sum": "counter",
+                              f"{n}_max": "gauge"})
+        return kinds
+
     def snapshot_histograms(self) -> dict[str, dict[str, Any]]:
         """Each histogram as ``{"bounds": [...], "series": [{"labels",
         "counts", "count", "sum", "max", "exemplars"}, ...]}``, series
@@ -171,6 +188,73 @@ class MetricsRegistry:
                                        "max": series.max,
                                        "exemplars": [list(e) for e in series.exemplars]})
         return out
+
+
+def merge_histogram_snapshots(snaps: Iterable[dict[str, dict[str, Any]]]
+                              ) -> dict[str, dict[str, Any]]:
+    """Replicas' :meth:`~MetricsRegistry.snapshot_histograms` merged, as
+    ``tasksrunner/observability/metrics.py:396`` merges them: series of
+    one name and label set add bucket by bucket (a series whose bounds
+    differ from the first seen is skipped, not merged wrongly), their
+    exemplars are pooled, and a ``max`` where the series carry one is the
+    largest."""
+    merged: dict[str, dict[str, Any]] = {}
+    for snap in snaps:
+        for name, hist in snap.items():
+            target = merged.setdefault(name, {"bounds": list(hist["bounds"]), "series": {}})
+            if target["bounds"] != list(hist["bounds"]):
+                continue
+            for series in hist["series"]:
+                key = tuple(sorted(series["labels"].items()))
+                slot = target["series"].get(key)
+                if slot is None:
+                    slot = target["series"][key] = {
+                        "labels": dict(series["labels"]), "counts": list(series["counts"]),
+                        "sum": float(series["sum"]), "count": int(series["count"]),
+                        "exemplars": [list(e) for e in series.get("exemplars", ())]}
+                    if "max" in series:
+                        slot["max"] = float(series["max"])
+                    continue
+                slot["counts"] = [a + b for a, b in zip(slot["counts"], series["counts"])]
+                slot["sum"] += float(series["sum"])
+                slot["count"] += int(series["count"])
+                slot["exemplars"].extend(list(e) for e in series.get("exemplars", ()))
+                if "max" in series:
+                    slot["max"] = max(slot.get("max", float("-inf")), float(series["max"]))
+    return {name: {"bounds": hist["bounds"],
+                   "series": [hist["series"][k] for k in sorted(hist["series"])]}
+            for name, hist in merged.items()}
+
+
+def merge_flat_snapshots(snaps: Iterable[dict[str, float]],
+                         kinds: dict[str, str] | None = None) -> dict[str, float]:
+    """Replicas' flat :meth:`~MetricsRegistry.snapshot` merged: a gauge
+    (by ``kinds``) takes the largest value, anything else is summed."""
+    kinds = kinds or {}
+    out: dict[str, float] = {}
+    for snap in snaps:
+        for key, value in snap.items():
+            if kinds.get(key.split("{", 1)[0]) == "gauge":
+                out[key] = max(out.get(key, float("-inf")), float(value))
+            else:
+                out[key] = out.get(key, 0.0) + float(value)
+    return out
+
+
+def summarize_histograms(merged: dict[str, dict[str, Any]],
+                         quantiles: tuple[float, ...] = (0.5, 0.95, 0.99)
+                         ) -> list[dict[str, Any]]:
+    """One row per series of merged histograms: name, labels, count, sum
+    and the ``p50`` / ``p95`` / ``p99`` estimates."""
+    rows: list[dict[str, Any]] = []
+    for name, hist in sorted(merged.items()):
+        for series in hist["series"]:
+            row: dict[str, Any] = {"name": name, "labels": dict(series["labels"]),
+                                   "count": series["count"], "sum": series["sum"]}
+            for q in quantiles:
+                row[f"p{int(q * 100)}"] = estimate_percentile(hist["bounds"], series["counts"], q)
+            rows.append(row)
+    return rows
 
 
 def estimate_percentile(bounds: list[float], counts: list[int], q: float) -> float:

@@ -466,6 +466,34 @@ def default_broker_path(name: str) -> str:
     return ".tasksrunner/pubsub-" + name + ".db"
 
 
+def open_for_inspection(spec: ComponentSpec, base_dir: pathlib.Path | str | None = None,
+                        *, must_exist: bool = True) -> SqliteBroker:
+    """A component's shared broker file opened out of band, as an
+    autoscaler reads the broker and not the app; a relative
+    ``brokerPath`` resolves against ``base_dir`` (the run file's
+    directory, which the replicas resolve against too). Close it with
+    :meth:`SqliteBroker.close_sync`. A component whose live broker is not
+    the sqlite file (a ``redisHost``) is refused."""
+    if not spec.type.startswith("pubsub."):
+        raise ComponentError(f"component {spec.name!r} is {spec.type}, not a pubsub")
+    host = spec.metadata.get("redisHost")
+    if host is not None and (not isinstance(host, str) or host.strip()):
+        raise ComponentError(
+            f"component {spec.name!r} is served by the Redis streams broker (redisHost "
+            "set), which is not ported yet; its backlog is in no local broker file")
+    broker_path = spec.metadata.get("brokerPath")
+    if not isinstance(broker_path, str):
+        broker_path = default_broker_path(spec.name)
+    path = pathlib.Path(broker_path)
+    if not path.is_absolute():
+        path = pathlib.Path(base_dir or pathlib.Path.cwd()) / path
+    if must_exist and not path.is_file():
+        raise ComponentError(
+            f"broker file {path} does not exist: has anything published through this "
+            "component yet? (a relative brokerPath resolves against the run file's directory)")
+    return SqliteBroker(spec.name, path)
+
+
 @driver("pubsub.sqlite", "pubsub.azure.servicebus")
 def _sqlite_pubsub(spec: ComponentSpec, metadata: dict[str, str]) -> SqliteBroker:
     """``brokerPath`` picks the shared file; ``maxRetries``,

@@ -354,6 +354,7 @@ class Runtime:
             "subscriptions": [{"topic": topic, "group": group}
                               for topic, group, _ in self._subscriptions],
             "metrics": metrics.snapshot(),
+            "metric_kinds": metrics.snapshot_kinds(),
             "histograms": metrics.snapshot_histograms(),
         }
 

@@ -6,18 +6,29 @@ Grants map a component name to the operations an app may run on it
 every topic or for a list of topics: ``{"statestore": ["read", "write"],
 "taskspubsub": [{"subscribe": ["tasksavedtopic"]}]}``. The runtime checks
 them when they are given; without grants an app is unrestricted.
+
+With ``per_app_tokens`` the orchestrator gives each app a token of its
+own and writes the sha256 digests of all of them to the file that
+``TASKSRUNNER_TOKENS_FILE`` names (:func:`load_token_map`): a sidecar
+takes a peer's token, checked by its digest (:func:`hash_token`), on
+inbound service invocation only, as ``tasksrunner/security.py`` does.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import pathlib
 from dataclasses import dataclass, field
 
 from tasksrunner_torch.errors import ComponentError, PermissionDenied
 
 #: the JSON grants of the app a replica runs, as the JAX orchestrator sets them
 GRANTS_ENV = "TASKSRUNNER_GRANTS"
+#: the JSON file of app_id → token digest, set for every replica when the
+#: orchestrator runs with ``per_app_tokens: true``
+TOKENS_FILE_ENV = "TASKSRUNNER_TOKENS_FILE"
 _KNOWN_OPS = {"read", "write", "publish", "subscribe", "invoke"}
 
 
@@ -69,6 +80,11 @@ class AppGrants:
             components[str(comp)] = ops
         return cls(components=components)
 
+    def to_json(self) -> dict:
+        """The grants in the ``grants:`` block's own form."""
+        return {comp: [op if topics is None else {op: topics} for op, topics in ops.items()]
+                for comp, ops in self.components.items()}
+
     def check(self, component: str, op: str, *, topic: str | None = None,
               app_id: str | None = None) -> None:
         """Raise :class:`PermissionDenied` unless ``op`` (on ``topic``)
@@ -90,3 +106,28 @@ def grants_from_env() -> AppGrants | None:
     if not raw:
         return None
     return AppGrants.parse(json.loads(raw), app_id=os.environ.get("TASKSRUNNER_APP_ID", "?"))
+
+
+def hash_token(token: str) -> str:
+    """The sha256 hex digest of a peer token: what sidecars store and
+    compare, so no replica holds another app's token."""
+    return hashlib.sha256(token.encode()).hexdigest()
+
+
+def load_token_map(path: str | pathlib.Path | None = None) -> dict[str, str]:
+    """app_id → token digest, from ``path`` or the file
+    ``TASKSRUNNER_TOKENS_FILE`` names; empty when neither is set."""
+    if path is None:
+        path = os.environ.get(TOKENS_FILE_ENV)
+    if not path:
+        return {}
+    p = pathlib.Path(path)
+    try:
+        doc = json.loads(p.read_text())
+    except OSError as exc:
+        raise ComponentError(f"cannot read token map {p}: {exc}") from exc
+    except ValueError as exc:
+        raise ComponentError(f"token map {p} is not valid JSON: {exc}") from exc
+    if not isinstance(doc, dict):
+        raise ComponentError(f"token map {p} must be a JSON object")
+    return {str(k): str(v) for k, v in doc.items()}

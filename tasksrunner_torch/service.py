@@ -83,6 +83,14 @@ def place_tokens(tokens: np.ndarray, devices: list) -> list[tuple[int, torch.Ten
             for i, part in enumerate(np.split(tokens, n))]
 
 
+def task_tokens(task: dict, cfg: ModelConfig) -> np.ndarray:
+    """The token ids the scorer reads for a task: its name, creator and
+    assignee, hashed (``"empty"`` for a task with none of them)."""
+    text = " ".join(str(task.get(k, "")) for k in ("taskName", "taskCreatedBy", "taskAssignedTo")
+                    if task.get(k))
+    return np.asarray(hash_token_ids(text or "empty", cfg), np.int32)
+
+
 def batch_probs(replicas: list[dict], devices: list, tokens: np.ndarray, *,
                 cfg: ModelConfig) -> np.ndarray:
     """The class probabilities of a bucket of ``tokens``, computed on the
@@ -169,12 +177,6 @@ def make_app(*, pubsub: str = "taskspubsub", topic: str = "tasksavedtopic",
         return Response(429, {"error": str(exc)},
                         headers={"Retry-After": str(int(exc.retry_after or 1))})
 
-    def _encode(task: dict) -> np.ndarray:
-        text = " ".join(
-            str(task.get(k, "")) for k in
-            ("taskName", "taskCreatedBy", "taskAssignedTo") if task.get(k))
-        return np.asarray(hash_token_ids(text or "empty", cfg), np.int32)
-
     @app.post("/score")
     async def score(req: Request) -> Any:
         if "params" not in loaded:
@@ -186,7 +188,7 @@ def make_app(*, pubsub: str = "taskspubsub", topic: str = "tasksavedtopic",
         if not isinstance(task, dict):
             return 400, {"error": "body must be a task object"}
         try:
-            result = await batcher.submit(_encode(task))
+            result = await batcher.submit(task_tokens(task, cfg))
         except SaturatedError as exc:
             return _shed(exc)
         if task.get("taskId") is not None:
@@ -201,7 +203,7 @@ def make_app(*, pubsub: str = "taskspubsub", topic: str = "tasksavedtopic",
         if not isinstance(task, dict) or not task.get("taskId"):
             return 200  # not a task event; ack and move on
         try:
-            result = await batcher.submit(_encode(task))
+            result = await batcher.submit(task_tokens(task, cfg))
         except SaturatedError as exc:
             return _shed(exc)
         await app.client.save_state(state_store, str(task["taskId"]), result)

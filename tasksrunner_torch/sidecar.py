@@ -17,7 +17,11 @@
 * ``GET /v1.0/healthz`` (204) and ``GET /v1.0/metadata``.
 
 Every route but ``/v1.0/healthz`` needs the ``tr-api-token`` header when
-``TASKSRUNNER_API_TOKEN`` is set (401), is shed with 429 + ``Retry-After``
+``TASKSRUNNER_API_TOKEN`` is set (401); on the invoke route a peer app's
+own token also passes, when its digest is in the token map of
+``TASKSRUNNER_TOKENS_FILE`` (the orchestrator's ``per_app_tokens``), so
+another app's identity opens this app's methods and nothing else. A
+route is shed with 429 + ``Retry-After``
 while the admission controller sheds (``/v1.0/metadata`` never is), runs
 in the trace scope of the incoming ``traceparent`` (a new trace without
 one) and is timed into ``sidecar_request_latency_seconds{route}``. An
@@ -47,6 +51,7 @@ from tasksrunner_torch.invoke.headers import inward_headers, outward_headers
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.probes import EventLoopLagProbe
 from tasksrunner_torch.runtime import Runtime
+from tasksrunner_torch.security import hash_token, load_token_map
 from tasksrunner_torch.tracing import BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope
 
 logger = logging.getLogger(__name__)
@@ -74,8 +79,11 @@ class Sidecar:
     :attr:`port` holds the bound one after :meth:`start`)."""
 
     def __init__(self, runtime: Runtime, *, host: str = "127.0.0.1", port: int = 3500,
-                 app: App | None = None) -> None:
+                 app: App | None = None, peer_tokens: set[str] | None = None) -> None:
         self.runtime = runtime
+        #: digests of the peer apps' tokens the invoke route accepts
+        self.peer_tokens = (set(load_token_map().values()) if peer_tokens is None
+                            else peer_tokens)
         self.host = host
         self.port = port
         self._app = app
@@ -103,7 +111,10 @@ class Sidecar:
                                        for k, v in params.items()})
         label = route.handler.__name__
         required = os.environ.get(TOKEN_ENV)
-        if required and headers.get(TOKEN_HEADER) != required:
+        supplied = headers.get(TOKEN_HEADER)
+        if required and supplied != required and not (
+                route.kind == "peer" and supplied is not None
+                and hash_token(supplied) in self.peer_tokens):
             return Response(401, {"error": "missing or bad api token"})
         # after the token check: saturation is not for anonymous eyes
         admission = self.admission
@@ -181,7 +192,8 @@ class Sidecar:
         add("POST", "/v1.0/state/{store}/bulk", bulk_get_state)
         add("POST", "/v1.0/state/{store}/transaction", transact_state)
         add("POST", "/v1.0/publish/{pubsub}/{topic}", publish)
-        add("*", "/v1.0/invoke/{app_id}/method/{path:.*}", invoke)
+        # a peer app's own token passes here and nowhere else
+        add("*", "/v1.0/invoke/{app_id}/method/{path:.*}", invoke, kind="peer")
         # never shed: an autoscaler reads its signals here under overload
         add("GET", "/v1.0/metadata", metadata, kind="exempt")
 

@@ -450,6 +450,45 @@ async def test_scorer_on_the_runtime_stores_a_saved_task(card):
     assert flash.launches > before
 
 
+async def test_an_orchestrated_replica_runs_b1_on_the_card(card, tmp_path):
+    """The orchestrator with no device given: its one scorer replica (a
+    ``host`` process) answers ``/score`` through its sidecar on the card,
+    and the kernel launch counts it logs when it stops are the forward's
+    per layer for the warmed bucket and each batch its ``/ml/stats`` shows."""
+    import asyncio
+    import json
+
+    from tasksrunner_torch.client import http_request
+    from tasksrunner_torch.orchestrator.config import AppSpec, RunConfig
+    from tasksrunner_torch.orchestrator.run import Orchestrator
+
+    config = RunConfig(apps=[AppSpec(app_id="priority-scorer",
+                                     module="tasksrunner_torch.service:make_app",
+                                     env={"TASKSRUNNER_ML_BUCKETS": "1,8"})],
+                       registry_file=str(tmp_path / "apps.json"), base_dir=tmp_path)
+    orch = Orchestrator(config)
+    await asyncio.wait_for(orch.start(), 30)
+    try:
+        [replica] = orch.replicas["priority-scorer"]
+        await asyncio.wait_for(replica.ready.wait(), 120)
+        body = json.dumps({"taskId": "t", "taskName": "rotate the keys"}).encode()
+        path = "/v1.0/invoke/priority-scorer/method/score"
+        while (reply := await http_request("127.0.0.1", replica.ports[1], "POST", path,
+                                           body=body))[0] == 503:
+            await asyncio.sleep(0.25)
+        assert reply[0] == 200, reply
+        stats = json.loads((await http_request("127.0.0.1", replica.ports[0], "GET",
+                                               "/ml/stats"))[2])
+    finally:
+        await asyncio.wait_for(orch.stop(), 60)
+    [line] = [x for x in replica.log_buffer if " kernel launches " in x]
+    launched = json.loads(line.split(" pid=")[1].split(" ", 1)[1])
+    n_layers = ModelConfig().n_layers
+    assert launched["flash_fwd"] == n_layers * sum(
+        1 + stats["batches"].get(str(b), 0) for b in stats["buckets"])
+    assert launched["flash_bwd_delta"] == launched["flash_ring"] == 0
+
+
 def _bf16_steps(got, want):
     """The largest |got − want| in bf16 steps, each element's step taken
     at its magnitude or at want's rms, whichever is larger: a sum that

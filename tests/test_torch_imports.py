@@ -34,13 +34,17 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
-    # every module, the request path's observability and the sidecar among them
+    # every module, the request path's observability, the sidecar and the
+    # orchestrator among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
                  "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
                  "tasksrunner_torch.runtime", "tasksrunner_torch.cli",
                  "tasksrunner_torch.state.sqlite", "tasksrunner_torch.pubsub.sqlite",
-                 "tasksrunner_torch.component.blockyaml"):
+                 "tasksrunner_torch.component.blockyaml",
+                 "tasksrunner_torch.orchestrator.config", "tasksrunner_torch.orchestrator.run",
+                 "tasksrunner_torch.orchestrator.autoscale",
+                 "tasksrunner_torch.orchestrator.admin", "tasksrunner_torch.state.lease"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
