@@ -90,6 +90,27 @@ exit, traceback) at the first phase that does not hold:
    ``/ml/stats`` gives. Prints events/s on one and three replicas,
    event-to-stored, spawn → ready, crash → ready, the scale-in, ``/score``
    and the card's memory;
+8d. deploy: ``python -m tasksrunner_torch deploy`` on a manifest of the
+   scorer (1 to 2 replicas by backlog, per-app tokens, a required API
+   token, a secret from the deploying environment) whose ``scores`` store
+   (the sample's cloud-dialect file) takes its database path by
+   ``secretRef`` from a file secret store: ``validate`` (exit 0; a broken
+   copy with a ``bindings.cron`` component whose scope names no app exits
+   1 with both problems), ``what-if``, ``apply``, ``what-if`` (no
+   changes); ``run`` on the applied run file, the floor held at 2; a
+   publisher's sidecar whose resources hold the applied components and
+   the sample's Resiliency document retargeted at the scorer (timeout
+   and retry; the breaker left out); 64 events, each stored once in the
+   file the secret names, no dead letter, scores within 2e-2; the
+   secrets route 200 through the scorer's sidecar, 403 through the
+   publisher's (no grant), 401 with the deploying token, and ``secret``
+   through the registry; 64 two-hop ``/score`` calls in four waves, one
+   replica killed with SIGKILL in the second, every call 200 and the
+   caller's ``resiliency_retry_total`` printed; SIGTERM (nothing left on
+   the card or in the registry, each clean stop's B1 launches equal to
+   its ``/ml/stats``); ``down``, then ``what-if`` lists the environment
+   again. Prints each verb's seconds, spawn → ready, crash → ready,
+   events/s, the retries and the card's memory a replica;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -162,7 +183,7 @@ from tasksrunner_torch import (  # noqa: E402
     _kernels, bench, cli, flash, graft_entry, model, ring, service, spans, train,
 )
 from tasksrunner_torch.app import App  # noqa: E402
-from tasksrunner_torch.client import http_request  # noqa: E402
+from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request  # noqa: E402
 from tasksrunner_torch.hosting import InProcHost  # noqa: E402
 from tasksrunner_torch.metrics import metrics  # noqa: E402
 from tasksrunner_torch.probes import LAG_GAUGE  # noqa: E402
@@ -1273,11 +1294,12 @@ class _Processes:
         self.logs = logs
         self.procs: dict[str, subprocess.Popen] = {}
 
-    async def start(self, name: str, *args: str, seconds: float = 120) -> dict:
+    async def start(self, name: str, *args: str, seconds: float = 120,
+                    env: dict | None = None) -> dict:
         log = open(self.logs / f"{name}.log", "w")
         proc = subprocess.Popen([sys.executable, "-m", "tasksrunner_torch", "--log-level",
                                  "warning", *args], cwd=ROOT, stdout=subprocess.PIPE,
-                                stderr=log, text=True)
+                                stderr=log, text=True, env=env)
         log.close()
         self.procs[name] = proc
         deadline = time.monotonic() + seconds
@@ -1658,11 +1680,15 @@ class _Orchestrated:
     """``python -m tasksrunner_torch run`` as a subprocess, its output and
     its errors read line by line, and its admin API."""
 
-    def __init__(self, run_file: Path, logs: Path, device: str | None) -> None:
+    def __init__(self, run_file: Path, logs: Path, device: str | None,
+                 env: dict | None = None, token: str | None = None) -> None:
         device_args = [] if device is None else ["--device", device]
         self.proc = subprocess.Popen([sys.executable, "-m", "tasksrunner_torch", "run",
                                       str(run_file), *device_args], cwd=ROOT,
-                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     env=env)
+        #: the admin API's token, where the orchestrator runs with one
+        self.headers = {TOKEN_HEADER: token} if token else None
         self.out = _Lines(self.proc.stdout)
         self.err = _Lines(self.proc.stderr, logs / "orchestrator.log")
         self.admin_url: str | None = None
@@ -1679,7 +1705,8 @@ class _Orchestrated:
     async def admin(self, method: str, path: str, body=None) -> dict:
         port = int(self.admin_url.rsplit(":", 1)[1])
         status, _, reply = await _http(port, method, "/admin" + path,
-                                       json.dumps(body).encode() if body is not None else b"")
+                                       json.dumps(body).encode() if body is not None else b"",
+                                       headers=self.headers)
         check(status == 200, f"admin {method} {path} answered {status}: {reply!r}")
         return json.loads(reply)
 
@@ -2012,6 +2039,353 @@ def phase_orchestrator(smi: str) -> int:
     emit({"phase": "orchestrator", "nvidia_smi": smi, **result,
           "seconds": time.monotonic() - started, "flash_launches": launched})
     check(launched > 0, "the orchestrated replicas launched no flash kernel")
+    return launched
+
+
+# the deploy phase: the scorer deployed from a manifest whose state store
+# takes its database path from a file secret store, 1 to 2 replicas by the
+# broker's backlog, per-app tokens and a required API token; a publisher's
+# sidecar holds the sample's Resiliency document retargeted at the scorer
+DEPLOY_TOKEN, DEPLOY_ENV, DEPLOY_KEY_VAR = "deploy-smoke-token", "smoke-env", "SMOKE_SCORER_KEY"
+DEPLOY_EVENTS, DEPLOY_WAVES, DEPLOY_WAVE = 64, 4, 16
+SAMPLE_ROOT = SAMPLE_COMPONENTS.parent
+PUBLISHER_GRANTS = {PUBSUB: [{"publish": [TOPIC]}]}
+
+
+def _deploy_files(data: Path) -> Path:
+    """The manifest, its components and the secret file; returns the
+    manifest's path. The state store is the sample's cloud-dialect file
+    named ``scores`` and scoped to the scorer, its ``databasePath`` a
+    ``secretRef`` into the ``vault`` store; the broker is the sample's."""
+    comps = data / "components"
+    comps.mkdir()
+    (data / "secrets.json").write_text(json.dumps({"scores-db": str(data / "scores.db")}))
+    (comps / "vault.yaml").write_text(
+        "componentType: secretstores.local.file\nversion: v1\nmetadata:\n"
+        f"- name: secretsFile\n  value: {data / 'secrets.json'}\n")
+    store = (SAMPLE_ROOT / "aca-components" / "containerapps-statestore.yaml").read_text()
+    check("  value: .tasksrunner/statestore.db\n" in store, "the sample's store file changed")
+    (comps / "scores.yaml").write_text(
+        "secretStoreComponent: vault\n" + store
+        .replace("  value: .tasksrunner/statestore.db\n", "  secretRef: scores-db\n")
+        .replace("- tasksmanager-backend-api", f"- {APP_ID}"))
+    (comps / "pubsub.yaml").write_text(
+        (SAMPLE_COMPONENTS / "pubsub-redis.yaml").read_text()
+        .replace(".tasksrunner/pubsub-local.db", str(data / "broker.db"))
+        + f"  - name: claimLeaseSeconds\n    value: \"{ORCH_CLAIM_LEASE_S}\"\n")
+    manifest = data / "env.yaml"
+    manifest.write_text(
+        f"environment:\n  name: {DEPLOY_ENV}\n  per_app_tokens: true\n"
+        "  require_api_token: true\ncomponents:\n  - name: vault\n    file: components/vault.yaml\n"
+        "  - name: scores\n    file: components/scores.yaml\n"
+        f"  - name: {PUBSUB}\n    file: components/pubsub.yaml\n"
+        f"apps:\n  - app_id: {APP_ID}\n    module: tasksrunner_torch.service:make_app\n"
+        "    ingress: internal\n    health: { interval_seconds: 1 }\n"
+        f"    secrets:\n      api-key: {{ env: {DEPLOY_KEY_VAR} }}\n"
+        f"    grants:\n      scores: [read, write]\n      vault: [read]\n"
+        f"      {PUBSUB}:\n        - subscribe: [{TOPIC}]\n"
+        "    scale:\n      min_replicas: 1\n      max_replicas: 2\n"
+        f"      cooldown_seconds: {ORCH_COOLDOWN_S}\n      rules:\n"
+        f"        - type: pubsub-backlog\n          metadata:\n            component: {PUBSUB}\n"
+        f"            topic: {TOPIC}\n            messageCount: \"{ORCH_PER_REPLICA}\"\n")
+    return manifest
+
+
+def _deploy_verb(env: dict, action: str, manifest: Path, rc: int = 0) -> tuple[list[str], float]:
+    """``python -m tasksrunner_torch deploy ACTION MANIFEST``: its output's
+    lines and its seconds; exits ``rc`` or fails."""
+    started = time.monotonic()
+    out = subprocess.run([sys.executable, "-m", "tasksrunner_torch", "deploy", action,
+                          str(manifest)], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    check(out.returncode == rc, f"deploy {action} exited {out.returncode}, not {rc}: "
+                                f"{out.stdout}{out.stderr[-2000:]}")
+    return out.stdout.splitlines(), time.monotonic() - started
+
+
+def _proc_env(pid: int) -> dict[str, str]:
+    """The environment a replica was started with, as the host shows it."""
+    raw = Path(f"/proc/{pid}/environ").read_bytes().split(b"\0")
+    return dict(e.decode().split("=", 1) for e in raw if b"=" in e)
+
+
+async def _deploy_phase(data: Path) -> dict:
+    """The phase's run, on the card."""
+    manifest = _deploy_files(data)
+    registry = data / ".tasksrunner" / "apps.json"
+    env = {**os.environ, TOKEN_ENV: DEPLOY_TOKEN, DEPLOY_KEY_VAR: "sk-smoke"}
+    verbs: dict[str, float] = {}
+
+    # 1. validate; a broken copy (a scope naming no app, a bindings component)
+    lines, verbs["validate"] = _deploy_verb(env, "validate", manifest)
+    check(lines == [f"manifest '{DEPLOY_ENV}' is valid (1 apps, 3 components)"], f"{lines}")
+    broken = data / "broken"
+    broken.mkdir()
+    (broken / "components").symlink_to(data / "components")
+    (broken / "cron.yaml").write_text(
+        (SAMPLE_ROOT / "aca-components" / "containerapps-scheduled-cron.yaml").read_text())
+    (broken / "env.yaml").write_text(manifest.read_text().replace(
+        "components:\n", "components:\n  - name: nightly\n    file: cron.yaml\n", 1))
+    problems, verbs["validate_broken"] = _deploy_verb(env, "validate", broken / "env.yaml", 1)
+    check(problems == ["ERROR: component 'nightly': no driver for type 'bindings.cron'",
+                       "ERROR: component 'nightly': scope 'tasksmanager-backend-processor' "
+                       "matches no app"], f"the broken manifest's problems: {problems}")
+    # 2. what-if, apply, what-if
+    created, verbs["what_if"] = _deploy_verb(env, "what-if", manifest)
+    check(created == [f"+ {DEPLOY_ENV}"], f"the first what-if: {created}")
+    applied, verbs["apply"] = _deploy_verb(env, "apply", manifest)
+    run_file = data / ".tasksrunner" / f"{DEPLOY_ENV}-run.yaml"
+    check(applied[-1] == f"start with: python -m tasksrunner_torch run {run_file}", f"{applied}")
+    again, verbs["what_if_again"] = _deploy_verb(env, "what-if", manifest)
+    check(again == ["no changes — recorded state matches the manifest"], f"{again}")
+
+    procs = _Processes(data)
+    publisher = App("some-api")
+    baseline = len(_card_apps()[0])
+    orch = _Orchestrated(run_file, data, None, env=env, token=DEPLOY_TOKEN)
+    phase_t = time.monotonic()
+    watch = _StoreWatch(data / "scores.db")
+    saved_token = os.environ.get(TOKEN_ENV)
+    published: dict[str, float] = {}
+    tasks_by_id: dict[str, dict] = {}
+    try:
+        async def stats(app_port: int) -> dict:
+            status, _, body = await _http(app_port, "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats answered {status}")
+            return json.loads(body)
+
+        async def until_ready(index: int, incarnation: int, seconds: float) -> dict:
+            await _until(lambda: len(orch.ready(index)) >= incarnation, seconds,
+                         f"replica {index} printed no ready line (incarnation {incarnation})")
+            fields = orch.ready(index)[incarnation - 1][1]
+            while not (await stats(int(fields["app_port"])))["ready"]:
+                await asyncio.sleep(0.05)
+            return fields
+
+        # 3. the applied run file on the card: replica 0, then the floor at
+        # 2 (the scaler's range is 1-2) so that both serve until the stop
+        fields0 = await until_ready(0, 1, 600)
+        spawn_ready_s = {"0": orch.ready(0)[0][0] - orch.spawned(0)[0][0]}
+        orch.admin_url = json.loads((registry.parent / "orchestrator.json").read_text()
+                                    )["admin_url"]
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"min_replicas": 2})
+        fields1 = await until_ready(1, 1, 300)
+        spawn_ready_s["1"] = orch.ready(1)[0][0] - orch.spawned(1)[0][0]
+        replicas = await orch.replicas()
+        check(len(replicas) == 2, f"not two replicas: {replicas}")
+        # the app's own token (per_app_tokens), and its secret from the
+        # deploying environment, as the host shows the replica's start
+        started_with = _proc_env(replicas[0]["pid"])
+        scorer_token = started_with.get(TOKEN_ENV)
+        check(scorer_token not in (None, DEPLOY_TOKEN), "the replica has no token of its own")
+        check(started_with.get("API_KEY") == "sk-smoke", "the manifest's secret is not in env")
+        on_card = _check_on_card([r["pid"] for r in replicas], "while serving", baseline)
+
+        # 4. the publisher: the applied components and the sample's
+        # Resiliency document retargeted at the scorer, timeout and retry
+        # only. It is the one caller outside the run file, so it holds the
+        # scorer's token, read where an operator on the host can read it.
+        pub_comps = data / "publisher"
+        pub_comps.mkdir()
+        for comp in (data / ".tasksrunner" / f"{DEPLOY_ENV}-components").iterdir():
+            (pub_comps / comp.name).write_text(comp.read_text())
+        policy = (SAMPLE_COMPONENTS / "resiliency.yaml").read_text()
+        check("      tasksmanager-backend-api:\n" in policy
+              and "        circuitBreaker: api-breaker\n" in policy,
+              "the sample's resiliency file changed")
+        (pub_comps / "resiliency.yaml").write_text(
+            policy.replace("      tasksmanager-backend-api:\n", f"      {APP_ID}:\n")
+            .replace("        circuitBreaker: api-breaker\n", ""))
+        os.environ[TOKEN_ENV] = scorer_token
+        pub_sidecar = _free_port()
+        pub_app_port = await cli.start_app(publisher, sidecar_port=pub_sidecar)
+        await procs.start("publisher-sidecar", "sidecar", "--app-id", "some-api", "--app-port",
+                          str(pub_app_port), "--port", str(pub_sidecar), "--components",
+                          str(pub_comps), "--registry-file", str(registry),
+                          env={**os.environ, "TASKSRUNNER_GRANTS": json.dumps(PUBLISHER_GRANTS)})
+
+        # 5. events: each stored once, in the file the secret names
+        tasks = [_saved_task("dp", i) for i in range(DEPLOY_EVENTS)]
+        tasks_by_id.update((t["taskId"], t) for t in tasks)
+
+        async def publish(task: dict) -> None:
+            published[task["taskId"]] = time.monotonic()
+            await asyncio.wait_for(publisher.client.publish_event(PUBSUB, TOPIC, task), 60)
+        await asyncio.gather(*(publish(t) for t in tasks))
+        await _until(lambda: all(k in watch.first_seen for k in published), 120,
+                     f"events not stored: {sum(k in watch.first_seen for k in published)} of "
+                     f"{len(published)}")
+        first, last = min(published.values()), max(watch.first_seen[k] for k in published)
+        events = {"events": len(published), "drain_s": last - first,
+                  "events_per_s": len(published) / (last - first),
+                  "event_to_stored_ms": _p50_max_ms(
+                      [watch.first_seen[k] - t for k, t in published.items()])}
+
+        # 6. the secrets route: the scorer's grant opens it, the publisher's not
+        secret_path = "/v1.0/secrets/vault/scores-db"
+        status, _, body = await _http(int(fields0["sidecar_port"]), "GET", secret_path,
+                                      headers={TOKEN_HEADER: scorer_token})
+        check((status, json.loads(body)) == (200, {"scores-db": str(data / "scores.db")}),
+              f"the scorer's secret read answered {status}: {body!r}")
+        status, _, body = await _http(pub_sidecar, "GET", secret_path,
+                                      headers={TOKEN_HEADER: scorer_token})
+        check(status == 403 and b"no 'read' grant on component 'vault'" in body,
+              f"the publisher's secret read answered {status}: {body!r}")
+        status, _, _ = await _http(int(fields0["sidecar_port"]), "GET", secret_path,
+                                   headers={TOKEN_HEADER: DEPLOY_TOKEN})
+        check(status == 401, f"the deploying token opened the scorer's sidecar ({status})")
+        secret_cli = subprocess.run(
+            [sys.executable, "-m", "tasksrunner_torch", "secret", "vault", "scores-db",
+             "--app-id", APP_ID, "--registry-file", str(registry)], cwd=ROOT,
+            env={**os.environ, TOKEN_ENV: scorer_token}, capture_output=True, text=True,
+            timeout=120)
+        check(secret_cli.returncode == 0 and json.loads(secret_cli.stdout) == {
+            "scores-db": str(data / "scores.db")}, f"secret: {secret_cli}")
+
+        # 7. two-hop /score in waves over both replicas; replica 1 killed
+        # with SIGKILL after the first: the publisher's policy retries
+        # what met the dead replica, and every call answers 200
+        score_ms: list[float] = []
+
+        async def score(task: dict) -> None:
+            sent = time.monotonic()
+            reply = await asyncio.wait_for(publisher.client.invoke_method(
+                APP_ID, "score", data=task), 60)
+            check(reply.status == 200, f"/score answered {reply.status}: {reply.body!r}")
+            score_ms.append((time.monotonic() - sent) * 1e3)
+
+        last_stats = {r["pid"]: await stats(r["app_port"]) for r in replicas}
+        victim = replicas[1]
+        killed_t = None
+        for wave in range(DEPLOY_WAVES):
+            calls = [_saved_task(f"dp-score{wave}", i) for i in range(DEPLOY_WAVE)]
+            running = asyncio.gather(*(score(t) for t in calls))
+            if wave == 1:
+                await asyncio.sleep(0.005)  # the wave in flight
+                last_stats[victim["pid"]] = await stats(victim["app_port"])
+                os.kill(victim["pid"], signal.SIGKILL)
+                killed_t = time.monotonic()
+            await running
+        status, _, body = await _http(pub_sidecar, "GET", "/v1.0/metadata",
+                                      headers={TOKEN_HEADER: scorer_token})
+        check(status == 200, f"the publisher's metadata answered {status}")
+        caller_metrics = json.loads(body)["metrics"]
+        retries = caller_metrics.get(f"resiliency_retry_total{{target={APP_ID}}}", 0)
+        exhausted = caller_metrics.get(f"resiliency_retry_exhausted_total{{target={APP_ID}}}", 0)
+        print(f"deploy: resiliency_retry_total{{target={APP_ID}}} = {retries}", flush=True)
+        check(len(score_ms) == DEPLOY_WAVES * DEPLOY_WAVE and exhausted == 0,
+              f"{len(score_ms)} /score answers, {exhausted} exhausted")
+        check(retries > 0, "no call met the killed replica: nothing was retried")
+        fields1b = await until_ready(1, 2, 120)
+        crash_ready_s = orch.ready(1)[1][0] - killed_t
+
+        # 8. SIGTERM: every replica stops, each cleanly stopped one logs its
+        # launches; nothing left on the card or in the registry
+        replicas = await orch.replicas()
+        check(len(replicas) == 2 and replicas[1]["pid"] != victim["pid"],
+              f"replica 1 did not come back: {replicas}")
+        for r in replicas:
+            last_stats[r["pid"]] = await stats(r["app_port"])
+        rc = orch.stop()
+        check(rc == 0, f"the orchestrator exited {rc}: "
+                       f"{(data / 'orchestrator.log').read_text()[-3000:]}")
+        procs.stop("publisher-sidecar")
+        after = _check_on_card([], "after the stop", baseline)
+        left = json.loads(registry.read_text())
+        check(left == {}, f"entries left in the registry: {left}")
+        counted = {}
+        for _, line in orch.out.find(f" kernel launches app={APP_ID} pid="):
+            pid, launches = line.split(" pid=", 1)[1].split(" ", 1)
+            counted[int(pid)] = json.loads(launches)
+        serving = sorted(r["pid"] for r in replicas)
+        check(sorted(counted) == serving, f"launch lines for {sorted(counted)}, not {serving}")
+        expected = {p: expected_serve_launches(last_stats[p], torch.cuda.device_count())
+                    for p in serving}
+        check(all(counted[p]["flash_fwd"] == expected[p] for p in serving),
+              f"B1 launches {counted} != expected {expected}")
+        check(all(v == 0 for c in counted.values() for k, v in c.items() if k != "flash_fwd"),
+              f"a replica launched a backward or ring kernel: {counted}")
+        watch.stop()
+
+        # every event stored once, in the secret's file; no dead letter;
+        # the stored scores against the scorer's math in this process
+        keys = _store_keys(data / "scores.db")
+        check(keys == sorted(f"{APP_ID}||{k}" for k in published),
+              f"the store file holds {len(keys)} keys, not {len(published)}")
+        rows = [r for r in _broker_rows(data / "broker.db") if r[1] == APP_ID]
+        check(len(rows) == len(published) and all(r[3] == 1 for r in rows),
+              f"deliveries not all acked once: {len(rows)} rows, "
+              f"{sum(r[3] == 2 for r in rows)} dead letters")
+        with contextlib.closing(sqlite3.connect(data / "scores.db")) as conn:
+            stored = {k.split("||", 1)[1]: json.loads(v)
+                      for k, v in conn.execute("SELECT key, value FROM state")}
+        ref_device = torch.device("cuda", 0)
+        ids = sorted(stored)
+        probs = service.batch_probs(
+            [init_params(SERVED, 0, ref_device)], [ref_device],
+            np.stack([service.task_tokens(tasks_by_id[k], SERVED) for k in ids]), cfg=SERVED)
+        worst = 0.0
+        for row, k in zip(probs, ids):
+            label = service.PRIORITY_LABELS.index(stored[k]["priority"])
+            check(row[label] >= row.max() - SCORE_TOL,
+                  f"{k}: stored {stored[k]} but the scorer gives {row.tolist()}")
+            worst = max(worst, abs(float(row[label]) - stored[k]["confidence"]))
+        check(worst <= SCORE_TOL, f"stored confidence off by {worst}")
+
+        # 9. down, then what-if lists the environment again
+        gone, verbs["down"] = _deploy_verb(env, "down", manifest)
+        check(gone == [f"environment '{DEPLOY_ENV}' state removed"] and not run_file.exists()
+              and not (data / ".tasksrunner" / "deployed.json").exists(), f"down: {gone}")
+        after_down, verbs["what_if_after_down"] = _deploy_verb(env, "what-if", manifest)
+        check(after_down == [f"+ {DEPLOY_ENV}"], f"what-if after down: {after_down}")
+        return {"verb_seconds": verbs, "spawn_to_ready_s": spawn_ready_s,
+                "crash_to_ready_s": crash_ready_s, "killed_pid": victim["pid"],
+                "restarted_sidecar_port": int(fields1b["sidecar_port"]),
+                "first_sidecar_port_1": int(fields1["sidecar_port"]),
+                "events": events, "score_ms": _p50_max_ms([m / 1e3 for m in score_ms]),
+                "score_calls": len(score_ms), "resiliency_retry_total": retries,
+                "resiliency_retry_exhausted_total": exhausted,
+                "on_card": on_card, "after_stop": after,
+                "card_memory_per_replica_mib": (_mib(on_card["memory_used"])
+                                                - _mib(after["memory_used"])) / 2,
+                "stored_keys": len(keys), "dead_letters": 0,
+                "max_abs_err_confidence": worst,
+                "launches": {str(p): c["flash_fwd"] for p, c in counted.items()},
+                "expected_launches": {str(p): e for p, e in expected.items()}}
+    except BaseException:
+        for t, line in sorted(orch.err.lines + [x for x in orch.out.lines if any(
+                w in x[1] for w in (" ready ", "WARNING", "ERROR", "Traceback", "Error"))]
+                )[-80:]:
+            print(f"{t - phase_t:9.3f} {line}", file=sys.stderr)
+        for name in list(procs.procs):
+            print(f"{name}: {procs.tail(name)}", file=sys.stderr)
+        raise
+    finally:
+        if saved_token is None:
+            os.environ.pop(TOKEN_ENV, None)
+        else:
+            os.environ[TOKEN_ENV] = saved_token
+        watch.stop()
+        orch.kill()
+        for entry in (json.loads(registry.read_text()).get(APP_ID, [])
+                      if registry.exists() else []):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(entry["pid"], signal.SIGKILL)  # replicas a failed run left behind
+        procs.kill_all()
+        await publisher.stop()
+
+
+def phase_deploy(smi: str) -> int:
+    """The scorer deployed from a manifest (``python -m tasksrunner_torch
+    deploy``) and run from the applied run file: returns B1's launches
+    in its replicas."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-deploy-") as data:
+        result = asyncio.run(_deploy_phase(Path(data)))
+    launched = sum(result["launches"].values())
+    emit({"phase": "deploy", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched})
+    check(launched > 0, "the deployed replicas launched no flash kernel")
     return launched
 
 
@@ -2583,7 +2957,7 @@ def main() -> int:
     phase_ring()
     phase_forward()
     launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)
-                + phase_orchestrator(smi)}
+                + phase_orchestrator(smi) + phase_deploy(smi)}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()

@@ -16,7 +16,16 @@
   running orchestrator's admin API, found through ``orchestrator.json``
   beside ``--registry-file``;
 * ``ps`` and ``stop APP_ID``: the registry file's replicas probed, or
-  sent SIGTERM.
+  sent SIGTERM;
+* ``deploy validate|what-if|apply|down MANIFEST``: an environment
+  manifest (:mod:`tasksrunner_torch.deploy`) checked, diffed against the
+  recorded state, applied (the run file that ``run`` reads, and its
+  components) or taken down;
+* ``secret STORE KEY --app-id ID``: one secret read through a running
+  app's sidecar.
+
+``host`` and ``sidecar`` apply the ``kind: Resiliency`` documents of
+``--components`` to the app's runtime.
 
 ``host``, ``serve`` and ``sidecar`` print the line the JAX commands print
 once they serve (``ready app=… app_port=… sidecar_port=…``), so a script
@@ -46,7 +55,6 @@ from typing import Awaitable, Callable
 
 from tasksrunner_torch.app import App
 from tasksrunner_torch.client import AppClient
-from tasksrunner_torch.device import resolve_device
 from tasksrunner_torch.errors import TasksRunnerError
 
 
@@ -151,15 +159,19 @@ def _cmd_sidecar(args) -> None:
     from tasksrunner_torch.component.loader import load_components
     from tasksrunner_torch.component.registry import ComponentRegistry
     from tasksrunner_torch.invoke.resolver import AppAddress, NameResolver
+    from tasksrunner_torch.resiliency import ResiliencyPolicies, load_resiliency
     from tasksrunner_torch.runtime import HTTPAppChannel, Runtime
     from tasksrunner_torch.security import grants_from_env
     from tasksrunner_torch.sidecar import Sidecar
 
     specs = load_components(args.components) if args.components else []
+    policies = load_resiliency(args.components) if args.components else []
     resolver = NameResolver(registry_file=args.registry_file)
     runtime = Runtime(args.app_id, ComponentRegistry(specs, app_id=args.app_id),
                       resolver=resolver, app_channel=HTTPAppChannel("127.0.0.1", args.app_port),
-                      grants=grants_from_env())
+                      grants=grants_from_env(),
+                      resiliency=(ResiliencyPolicies(policies, app_id=args.app_id)
+                                  if policies else None))
     sidecar = Sidecar(runtime, port=args.port)
 
     async def start() -> str:
@@ -187,6 +199,73 @@ def _cmd_run(args) -> None:
     if args.no_adopt:
         config.adopt = False
     asyncio.run(run_from_config(config, device=args.device))
+
+
+def _cmd_deploy(args) -> None:
+    from tasksrunner_torch.deploy import (
+        apply_manifest, destroy, load_manifest, validate_manifest, what_if,
+    )
+
+    manifest = load_manifest(args.manifest)
+    if args.action == "validate":
+        problems = validate_manifest(manifest)
+        if problems:
+            for p in problems:
+                print(f"ERROR: {p}")
+            raise SystemExit(1)
+        print(f"manifest {manifest.name!r} is valid "
+              f"({len(manifest.apps)} apps, {len(manifest.components)} components)")
+    elif args.action == "what-if":
+        preview = what_if(manifest)
+        if not preview["valid"]:
+            for p in preview["problems"]:
+                print(f"ERROR: {p}")
+            raise SystemExit(1)
+        if not preview["changes"]:
+            print("no changes — recorded state matches the manifest")
+        for change in preview["changes"]:
+            if change["op"] == "modify":
+                print(f"~ {change['path']}: {change['from']!r} -> {change['to']!r}")
+            else:
+                sign = "+" if change["op"] == "create" else "-"
+                print(f"{sign} {change['path'] or manifest.name}")
+    elif args.action == "apply":
+        result = apply_manifest(manifest)
+        print(f"applied {len(result['changes'])} change(s)")
+        print(f"run config: {result['run_config']}")
+        print(f"state:      {result['state']}")
+        print(f"start with: python -m tasksrunner_torch run {result['run_config']}")
+    elif destroy(manifest):
+        print(f"environment {manifest.name!r} state removed")
+    else:
+        print(f"environment {manifest.name!r} had no recorded state")
+
+
+def _cmd_secret(args) -> None:
+    """``GET /v1.0/secrets/{store}/{key}`` through the app's sidecar,
+    found in the registry file; the reply printed, HTTP ≥ 400 an error."""
+    from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
+    from tasksrunner_torch.errors import AppNotFound
+    from tasksrunner_torch.invoke.resolver import NameResolver
+
+    resolver = NameResolver(registry_file=args.registry_file)
+    try:
+        addr = resolver.resolve(args.app_id)
+    except AppNotFound:
+        known = ", ".join(resolver.known_apps()) or "(none registered)"
+        raise SystemExit(f"app {args.app_id!r} is not registered; running apps: {known}")
+    headers = {TOKEN_HEADER: os.environ[TOKEN_ENV]} if os.environ.get(TOKEN_ENV) else {}
+    status, _, body = asyncio.run(asyncio.wait_for(http_request(
+        addr.host, addr.sidecar_port, "GET", f"/v1.0/secrets/{args.store}/{args.key}",
+        headers=headers), 30))
+    text = body.decode("utf-8", "replace")
+    if text:
+        try:
+            print(json.dumps(json.loads(text), indent=2))
+        except ValueError:
+            print(text)
+    if status >= 400:
+        raise SystemExit(f"HTTP {status}")
 
 
 def _admin_request(registry_file: str, method: str, path: str,
@@ -501,6 +580,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("app_id")
     p.add_argument("--registry-file", **registry)
     p.set_defaults(fn=_cmd_stop)
+
+    p = sub.add_parser("deploy", help="validate / what-if / apply / down an environment "
+                                      "manifest")
+    p.add_argument("action", choices=["validate", "what-if", "apply", "down"])
+    p.add_argument("manifest")
+    p.set_defaults(fn=_cmd_deploy)
+
+    p = sub.add_parser("secret", help="read a secret via a running app's sidecar")
+    p.add_argument("store")
+    p.add_argument("key")
+    p.add_argument("--app-id", required=True)
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_secret)
     return parser
 
 
@@ -510,6 +602,8 @@ def main(argv: list[str] | None = None) -> None:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s",
                         stream=sys.stderr)
     if "device" in vars(args):  # the commands that run apps, not their clients
+        from tasksrunner_torch.device import resolve_device  # torch: not for the clients
+
         try:
             # the card unless the CPU is asked for; raises without one
             resolve_device(args.device)

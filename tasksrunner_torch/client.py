@@ -36,6 +36,18 @@ TOKEN_HEADER = "tr-api-token"
 MAX_RESPONSE_HEAD_BYTES = 64 * 1024
 
 
+def retry_after_seconds(status: int, headers: dict[str, str]) -> float | None:
+    """The delta-seconds ``Retry-After`` of a 429 or 503 (a shed replica,
+    a warming model, an open breaker), which a resiliency policy's next
+    delay honours; None for any other answer."""
+    if status not in (429, 503) or "retry-after" not in headers:
+        return None
+    try:
+        return max(0.0, float(headers["retry-after"]))
+    except ValueError:
+        return None
+
+
 class InvocationResponse:
     def __init__(self, status: int, headers: dict[str, str], body: bytes) -> None:
         self.status = status
@@ -102,9 +114,12 @@ class _HTTPTransport:
     async def _checked(self, context: str, method: str, path: str,
                        body: bytes = b"") -> tuple[int, bytes]:
         headers = {"content-type": "application/json"} if body else None
-        status, _, payload = await self._request(method, path, headers=headers, body=body)
+        status, reply_headers, payload = await self._request(method, path, headers=headers,
+                                                             body=body)
         if status >= 300:
-            raise InvocationError(f"{context}: {status} {payload[:200]!r}", status=status)
+            exc = InvocationError(f"{context}: {status} {payload[:200]!r}", status=status)
+            exc.retry_after = retry_after_seconds(status, reply_headers)
+            raise exc
         return status, payload
 
     async def save_state(self, store: str, key: str, value: Any) -> None:

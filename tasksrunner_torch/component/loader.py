@@ -1,18 +1,20 @@
 """Component files from a resources directory: the port of
 ``tasksrunner/component/loader.py``, reading YAML with
-:mod:`~tasksrunner_torch.component.blockyaml` instead of PyYAML.
+:mod:`~tasksrunner_torch.component.blockyaml` instead of PyYAML and
+writing it with :func:`~tasksrunner_torch.component.blockyaml.dump_all`.
 
-Resiliency and Chaos documents share the resources directory in the JAX
-package, which loads them elsewhere. The port has neither yet, so a
-``kind: Resiliency`` or ``kind: Chaos`` document is refused with a
-:class:`~tasksrunner_torch.errors.ComponentError` rather than skipped:
-a policy that a user wrote must never be ignored without a word.
+Resiliency and Chaos documents share the resources directory. A
+``kind: Resiliency`` document is skipped here, as in the JAX package:
+:func:`tasksrunner_torch.resiliency.load_resiliency` reads it. The port
+has no chaos yet (ROADMAP A23), so a ``kind: Chaos`` document is refused
+with a :class:`~tasksrunner_torch.errors.ComponentError` rather than
+skipped: a policy that a user wrote is never ignored without a word.
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import Any, Mapping
+from typing import Any, Iterable, Mapping
 
 from tasksrunner_torch.component import blockyaml
 from tasksrunner_torch.component.spec import ComponentSpec, parse_component
@@ -40,9 +42,11 @@ def load_component_file(path: str | pathlib.Path, *, name: str | None = None) ->
     for doc in blockyaml.load_all(text, str(path)):
         if doc is None:
             continue
-        if is_resiliency_doc(doc) or is_chaos_doc(doc):
+        if is_resiliency_doc(doc):
+            continue  # tasksrunner_torch.resiliency reads it
+        if is_chaos_doc(doc):
             raise ComponentError(
-                f"{path}: kind: {doc['kind']} documents are not ported yet; "
+                f"{path}: kind: Chaos documents are not ported yet (ROADMAP A23); "
                 "remove the file from the resources directory to run without it")
         specs.append(parse_component(doc, default_name=name or path.stem, source=str(path)))
     return specs
@@ -70,3 +74,26 @@ def load_components(resources_path: str | pathlib.Path, *,
     if app_id is not None:
         specs = [s for s in specs if s.in_scope(app_id)]
     return specs
+
+
+def dump_components(specs: Iterable[ComponentSpec]) -> str:
+    """The specs as local-dialect YAML, a secret ref as a
+    ``secretKeyRef`` to its key (what ``deploy apply`` writes)."""
+    docs = []
+    for s in specs:
+        meta_items: list[dict] = []
+        for key, value in s.metadata.items():
+            if isinstance(value, str):
+                meta_items.append({"name": key, "value": value})
+            else:
+                meta_items.append({"name": key,
+                                   "secretKeyRef": {"name": value.key, "key": value.key}})
+        doc: dict = {"apiVersion": "tasksrunner/v1", "kind": "Component",
+                     "metadata": {"name": s.name},
+                     "spec": {"type": s.type, "version": s.version, "metadata": meta_items}}
+        if s.scopes:
+            doc["scopes"] = list(s.scopes)
+        if s.secret_store:
+            doc["auth"] = {"secretStore": s.secret_store}
+        docs.append(doc)
+    return blockyaml.dump_all(docs)

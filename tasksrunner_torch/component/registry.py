@@ -11,10 +11,15 @@ the local engines, so those files run unchanged. The port's drivers:
   :class:`~tasksrunner_torch.state.sqlite.SqliteStateStore`;
 * ``pubsub.in-memory`` / ``pubsub.memory``: :class:`~tasksrunner_torch.pubsub.InMemoryBroker`;
 * ``pubsub.sqlite`` / ``pubsub.azure.servicebus``, and ``pubsub.redis``
-  without a ``redisHost``: :class:`~tasksrunner_torch.pubsub.sqlite.SqliteBroker`.
+  without a ``redisHost``: :class:`~tasksrunner_torch.pubsub.sqlite.SqliteBroker`;
+* ``secretstores.local.env`` / ``secretstores.azure.keyvault``,
+  ``secretstores.local.file`` and ``secretstores.local.static``: the
+  stores of :mod:`tasksrunner_torch.secrets.local`.
 
-A :class:`ComponentRegistry` holds the specs in one app's scope and
-builds each component the first time it is asked for.
+A :class:`ComponentRegistry` holds the specs in one app's scope. It
+builds the secret stores among them at once, since every other
+component's secret refs may name them, and each other component, its
+refs resolved, the first time it is asked for.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Any, Callable
 
 from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import ComponentNotFound, DriverNotFound
+from tasksrunner_torch.secrets.base import SecretStore
+from tasksrunner_torch.secrets.resolver import SecretResolver
 
 #: factory(spec, metadata) -> component instance
 DriverFactory = Callable[[ComponentSpec, dict[str, str]], Any]
@@ -32,7 +39,8 @@ DriverFactory = Callable[[ComponentSpec, dict[str, str]], Any]
 _DRIVERS: dict[str, DriverFactory] = {}
 #: the modules whose import registers the port's drivers
 _DRIVER_MODULES = ("tasksrunner_torch.state.memory", "tasksrunner_torch.state.sqlite",
-                   "tasksrunner_torch.pubsub.memory", "tasksrunner_torch.pubsub.sqlite")
+                   "tasksrunner_torch.pubsub.memory", "tasksrunner_torch.pubsub.sqlite",
+                   "tasksrunner_torch.secrets.drivers")
 
 
 def driver(type_name: str, *aliases: str) -> Callable[[DriverFactory], DriverFactory]:
@@ -72,8 +80,21 @@ class ComponentRegistry:
 
     def __init__(self, specs: list[ComponentSpec], *, app_id: str | None = None) -> None:
         self.app_id = app_id
+        self.resolver = SecretResolver()
         self._specs = {spec.name: spec for spec in specs if spec.in_scope(app_id)}
         self._instances: dict[str, Any] = {}
+        # secret stores first; an inline ``secrets:`` list needs none (the
+        # parser resolved refs to it)
+        for spec in self._specs.values():
+            if spec.block == "secretstores":
+                store = self._build(spec)
+                if isinstance(store, SecretStore):
+                    self.resolver.add_store(store)
+                self._instances[spec.name] = store
+
+    def _build(self, spec: ComponentSpec) -> Any:
+        factory = resolve_driver(spec.type)
+        return factory(spec, self.resolver.resolve_metadata(spec))
 
     def spec(self, name: str) -> ComponentSpec:
         try:
@@ -91,7 +112,7 @@ class ComponentRegistry:
             raise ComponentNotFound(
                 f"component {name!r} is {spec.type!r}, not a {block} component")
         if name not in self._instances:
-            self._instances[name] = resolve_driver(spec.type)(spec, dict(spec.metadata))
+            self._instances[name] = self._build(spec)
         return self._instances[name]
 
     def names(self, block: str | None = None) -> list[str]:

@@ -10,11 +10,17 @@ component document, in one of two dialects that parse into one
   ``metadata`` / ``secrets`` / ``scopes``), whose name comes from the
   file or the caller.
 
-Metadata values are plain strings. A cloud ``secretRef`` that names an
-entry of the document's own ``secrets:`` list is resolved here, as in
-the JAX package. Secret stores are not ported yet: a ``secretKeyRef``,
-or a ``secretRef`` that would need a secret store, is refused with a
-:class:`~tasksrunner_torch.errors.ComponentError`.
+A metadata value is given three ways, as in the JAX package:
+
+* inline, as ``value``;
+* ``secretKeyRef: {name, key}`` (local dialect), resolved against the
+  secret store that ``auth.secretStore`` names;
+* ``secretRef: <name>`` (cloud dialect), resolved here against the
+  document's own ``secrets:`` list first, else left as a
+  :class:`SecretRef` to the store that ``secretStoreComponent`` names.
+
+A :class:`SecretRef` is resolved by the registry when it builds the
+component (:mod:`tasksrunner_torch.secrets.resolver`).
 """
 
 from __future__ import annotations
@@ -63,6 +69,15 @@ def metadata_int(metadata: Mapping[str, Any], key: str, default: int) -> int:
             f"metadata {key!r} must be an integer, not {raw!r}") from None
 
 
+@dataclass(frozen=True)
+class SecretRef:
+    """A secret to look up: ``key`` in secret store ``store``; a ``store``
+    of None is the runtime's default store."""
+
+    key: str
+    store: str | None = None
+
+
 @dataclass
 class ComponentSpec:
     """A parsed, dialect-neutral component definition."""
@@ -70,9 +85,14 @@ class ComponentSpec:
     name: str
     type: str
     version: str = "v1"
-    metadata: dict[str, str] = field(default_factory=dict)
+    #: plain strings, or SecretRef for a secret looked up at build time
+    metadata: dict[str, str | SecretRef] = field(default_factory=dict)
     #: app ids allowed to use this component; empty = visible to all
     scopes: list[str] = field(default_factory=list)
+    #: the cloud dialect's inline ``secrets:`` list
+    inline_secrets: dict[str, str] = field(default_factory=dict)
+    #: the secret store of refs that name none
+    secret_store: str | None = None
     #: where the spec was loaded from (diagnostics only)
     source: str | None = None
 
@@ -109,12 +129,6 @@ def _parse_scopes(raw: Any, *, where: str) -> list[str]:
     return list(raw)
 
 
-def _no_secret_stores(where: str, key: str, how: str) -> ComponentError:
-    return ComponentError(
-        f"{where}: metadata item {key!r} uses {how}; secret stores are not "
-        "ported yet (give the value inline)")
-
-
 def parse_local_schema(doc: Mapping[str, Any], *, default_name: str,
                        source: str | None = None) -> ComponentSpec:
     """The local dialect (``kind: Component`` + ``spec``)."""
@@ -125,19 +139,25 @@ def parse_local_schema(doc: Mapping[str, Any], *, default_name: str,
     if not isinstance(spec, Mapping) or "type" not in spec:
         raise ComponentError(f"{where}: missing spec.type")
 
-    metadata: dict[str, str] = {}
+    auth = doc.get("auth") or {}
+    secret_store = auth.get("secretStore")
+
+    metadata: dict[str, str | SecretRef] = {}
     for item in _metadata_items(spec.get("metadata"), where=where):
         key = str(item["name"])
         if "secretKeyRef" in item:
-            raise _no_secret_stores(where, key, "secretKeyRef")
-        if "value" not in item:
+            ref = item["secretKeyRef"] or {}
+            metadata[key] = SecretRef(key=str(ref.get("key") or ref.get("name") or key),
+                                      store=secret_store)
+        elif "value" in item:
+            metadata[key] = scalar_str(item["value"])
+        else:
             raise ComponentError(f"{where}: metadata item {key!r} needs value or secretKeyRef")
-        metadata[key] = scalar_str(item["value"])
 
     return ComponentSpec(
         name=str(name), type=str(spec["type"]), version=str(spec.get("version", "v1")),
         metadata=metadata, scopes=_parse_scopes(doc.get("scopes"), where=where),
-        source=source)
+        secret_store=secret_store, source=source)
 
 
 def parse_cloud_schema(doc: Mapping[str, Any], *, default_name: str,
@@ -150,20 +170,23 @@ def parse_cloud_schema(doc: Mapping[str, Any], *, default_name: str,
     if not ctype:
         raise ComponentError(f"{where}: missing componentType")
 
+    secret_store = doc.get("secretStoreComponent")
+
     inline_secrets: dict[str, str] = {}
     for item in doc.get("secrets") or []:
         if not isinstance(item, Mapping) or "name" not in item:
             raise ComponentError(f"{where}: each secrets item needs a name")
         inline_secrets[str(item["name"])] = scalar_str(item.get("value", ""))
 
-    metadata: dict[str, str] = {}
+    metadata: dict[str, str | SecretRef] = {}
     for item in _metadata_items(doc.get("metadata"), where=where):
         key = str(item["name"])
         if "secretRef" in item:
             ref_name = str(item["secretRef"])
-            if ref_name not in inline_secrets:
-                raise _no_secret_stores(where, key, f"secretRef {ref_name!r}")
-            metadata[key] = inline_secrets[ref_name]
+            if ref_name in inline_secrets:
+                metadata[key] = inline_secrets[ref_name]
+            else:
+                metadata[key] = SecretRef(key=ref_name, store=secret_store)
         elif "value" in item:
             metadata[key] = scalar_str(item["value"])
         else:
@@ -172,7 +195,8 @@ def parse_cloud_schema(doc: Mapping[str, Any], *, default_name: str,
     return ComponentSpec(
         name=str(doc.get("name") or default_name), type=str(ctype),
         version=str(doc.get("version", "v1")), metadata=metadata,
-        scopes=_parse_scopes(doc.get("scopes"), where=where), source=source)
+        scopes=_parse_scopes(doc.get("scopes"), where=where), inline_secrets=inline_secrets,
+        secret_store=secret_store, source=source)
 
 
 def parse_component(doc: Mapping[str, Any], *, default_name: str,

@@ -45,6 +45,18 @@ class DriverNotFound(ComponentError):
     """No driver is registered for a component's ``type``."""
 
 
+class SecretError(TasksRunnerError):
+    """A secret store or a secret reference failed."""
+
+    http_status = 500
+
+
+class SecretNotFound(SecretError):
+    """The store holds no secret of that name."""
+
+    http_status = 404
+
+
 class StateError(TasksRunnerError):
     http_status = 500
 
@@ -69,11 +81,24 @@ class SaturatedError(Exception):
 class InvocationError(TasksRunnerError):
     """A call through the app's runtime client failed: the runtime was
     unreachable, or it answered a state, publish or invoke call with an
-    error status (:attr:`status`; None when nothing answered)."""
+    error status (:attr:`status`; None when nothing answered).
+    :attr:`retry_after` holds the seconds of a 429's or 503's
+    ``Retry-After``, which a resiliency policy's next delay honours."""
+
+    #: seconds the server asked the caller to stay away, or None
+    retry_after: float | None = None
 
     def __init__(self, message: str, *, status: int | None = None) -> None:
         super().__init__(message)
         self.status = status
+
+
+class CircuitOpenError(TasksRunnerError):
+    """A resiliency circuit breaker is open: the call was refused without
+    being tried. A 503, so that callers tell "the target is being
+    protected" from a target's own 5xx."""
+
+    http_status = 503
 
 
 class AppNotFound(InvocationError):

@@ -5,8 +5,9 @@
 sockets: the app on its own port (``App.start``), the sidecar
 (:class:`~tasksrunner_torch.sidecar.Sidecar`) on another, the app's
 client calling the sidecar's runtime directly, and the replica
-registered in the resolver's file so peers can invoke it. A start that
-fails part-way unwinds what it started. ``python -m tasksrunner_torch
+registered in the resolver's file so peers can invoke it. The
+``kind: Resiliency`` documents in the components directory apply to its
+runtime. A start that fails part-way unwinds what it started. ``python -m tasksrunner_torch
 host`` runs one.
 
 The rest of this module is the in-process host: apps and their runtime
@@ -58,6 +59,7 @@ from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import InvocationError
 from tasksrunner_torch.invoke.resolver import AppAddress, NameResolver
 from tasksrunner_torch.probes import EventLoopLagProbe
+from tasksrunner_torch.resiliency import ResiliencyPolicies, load_resiliency
 from tasksrunner_torch.pubsub import InMemoryBroker, Message, Nack, delivery_outcome
 from tasksrunner_torch.runtime import InProcAppChannel, Runtime
 from tasksrunner_torch.security import grants_from_env
@@ -89,6 +91,8 @@ class AppHost:
         if specs is None:
             specs = load_components(components_path) if components_path else []
         self.specs = specs
+        #: the Resiliency documents beside the components
+        self.resiliency_specs = load_resiliency(components_path) if components_path else []
         self.resolver = NameResolver(registry_file=registry_file)
         #: the app's grants from ``TASKSRUNNER_GRANTS``; None = unrestricted
         self.grants = grants_from_env()
@@ -102,7 +106,10 @@ class AppHost:
             runtime = Runtime(self.app.app_id,
                               ComponentRegistry(self.specs, app_id=self.app.app_id),
                               resolver=self.resolver, app_channel=InProcAppChannel(self.app),
-                              grants=self.grants)
+                              grants=self.grants,
+                              resiliency=(ResiliencyPolicies(self.resiliency_specs,
+                                                             app_id=self.app.app_id)
+                                          if self.resiliency_specs else None))
             # the app's calls go to its runtime directly; HTTP starts at
             # the first process boundary (peer invokes)
             self.app.client = AppClient.runtime(runtime)

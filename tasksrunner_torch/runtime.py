@@ -1,6 +1,5 @@
 """The runtime behind a sidecar: the port of ``tasksrunner/runtime.py``
-without actors, workflows, bindings, secrets, chaos, resiliency policies
-and the mTLS mesh.
+without actors, workflows, bindings, chaos and the mTLS mesh.
 
 One :class:`Runtime` per app identity holds the app's scoped
 :class:`~tasksrunner_torch.component.registry.ComponentRegistry` and a
@@ -20,8 +19,17 @@ app beside it in one process calls it directly
 * **Invoke**: the app itself through its channel, any other app through
   its sidecar over HTTP, found by the resolver on every attempt; a
   ``client`` span ``invoke {app}/{path}``; the ``tr-api-token`` header
-  when ``TASKSRUNNER_API_TOKEN`` is set. Transport failures are retried
-  (:data:`INVOKE_ATTEMPTS`); error statuses are returned as they are.
+  when ``TASKSRUNNER_API_TOKEN`` is set. ``AppNotFound`` and transport
+  failures are retried under the resiliency policy that targets the app,
+  or, where none does, under the builtin one (:data:`INVOKE_ATTEMPTS`),
+  which leaves the ``resiliency_retry_*`` counters alone. Error statuses
+  are returned as they are.
+* **Secrets**: ``get_secret`` and ``bulk_secrets`` read a secret-store
+  component after a ``read`` grant check.
+* **Resiliency** (:mod:`tasksrunner_torch.resiliency`): a component's
+  outbound policy wraps each state operation (each item of a save on
+  its own) and each publish; its inbound policy wraps each delivery to
+  the app.
 * **Start**: wait until the app answers ``GET /tasksrunner/healthz``,
   read ``GET /tasksrunner/subscribe`` and subscribe one consumer per
   entry (group: the app id), after a ``subscribe`` grant check where
@@ -51,6 +59,7 @@ from tasksrunner_torch.errors import AppNotFound, ComponentNotFound, InvocationE
 from tasksrunner_torch.invoke.resolver import NameResolver
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.pubsub.base import Message, Nack, delivery_outcome
+from tasksrunner_torch.resiliency import ResiliencyPolicies, RetrySpec, TargetPolicy
 from tasksrunner_torch.security import AppGrants
 from tasksrunner_torch.state.base import StateItem, TransactionOp
 from tasksrunner_torch.state.keyprefix import KeyPrefixer, prefixer_for
@@ -62,9 +71,11 @@ from tasksrunner_torch.tracing import (
 logger = logging.getLogger(__name__)
 
 Reply = tuple[int, dict[str, str], bytes]
-#: a peer invoke's transport failures are tried this many times, the
-#: n-th retry after n × INVOKE_RETRY_DELAY seconds
+#: without a resiliency policy, a peer invoke's transport failures are
+#: tried this many times, the retries after 0.2 s and then 0.4 s
 INVOKE_ATTEMPTS, INVOKE_RETRY_DELAY = 3, 0.2
+_BUILTIN_INVOKE_RETRY = RetrySpec("exponential", INVOKE_RETRY_DELAY,
+                                  max_retries=INVOKE_ATTEMPTS - 1)
 
 
 class InProcAppChannel:
@@ -105,9 +116,12 @@ class HTTPAppChannel:
 class Runtime:
     def __init__(self, app_id: str | None, registry: ComponentRegistry, *,
                  resolver: NameResolver | None = None, app_channel=None,
-                 grants: AppGrants | None = None) -> None:
+                 grants: AppGrants | None = None,
+                 resiliency: ResiliencyPolicies | None = None) -> None:
         self.app_id = app_id
         self.registry = registry
+        #: the in-scope Resiliency documents; None = no policies
+        self.resiliency = resiliency
         self.resolver = resolver or NameResolver()
         self.app_channel = app_channel
         #: per-component permissions; None = unrestricted
@@ -115,6 +129,14 @@ class Runtime:
         #: (topic, group, cancel) of each subscription
         self._subscriptions: list[tuple[str, str, Callable[[], Awaitable[None]]]] = []
         self._started = False
+
+    async def _guarded(self, component_name: str, fn: Callable[[], Awaitable]) -> Any:
+        """``fn`` under the component's outbound policy, if it has one."""
+        policy = (self.resiliency.for_component(component_name)
+                  if self.resiliency is not None else None)
+        if policy is None:
+            return await fn()
+        return await policy.execute(fn, retriable=(OSError,))
 
     def _authorize(self, component: str, op: str, *, topic: str | None = None) -> None:
         if self.grants is not None:
@@ -133,9 +155,12 @@ class Runtime:
         if any(not isinstance(item, dict) or "key" not in item for item in items):
             raise StateError("each state item needs a key")
         started = time.perf_counter()
+        # one item at a time under the policy: a retry re-runs only the
+        # failed write, never an etag-guarded one that went through
         for item in items:
-            await store.set(prefixer.apply(str(item["key"])), item.get("value"),
-                            etag=item.get("etag"))
+            key = prefixer.apply(str(item["key"]))
+            await self._guarded(store_name, lambda k=key, it=item: store.set(
+                k, it.get("value"), etag=it.get("etag")))
         metrics.inc("state_save", len(items), store=store_name)
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="save")
@@ -145,7 +170,7 @@ class Runtime:
         store, prefixer = self._state_store(store_name)
         metrics.inc("state_get", store=store_name)
         started = time.perf_counter()
-        item = await store.get(prefixer.apply(key))
+        item = await self._guarded(store_name, lambda: store.get(prefixer.apply(key)))
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="get")
         return item
@@ -154,12 +179,14 @@ class Runtime:
         self._authorize(store_name, "write")
         store, prefixer = self._state_store(store_name)
         metrics.inc("state_delete", store=store_name)
-        return await store.delete(prefixer.apply(key), etag=etag)
+        return await self._guarded(store_name,
+                                   lambda: store.delete(prefixer.apply(key), etag=etag))
 
     async def bulk_get_state(self, store_name: str, keys: list) -> list[dict]:
         self._authorize(store_name, "read")
         store, prefixer = self._state_store(store_name)
-        items = await store.bulk_get([prefixer.apply(str(k)) for k in keys])
+        items = await self._guarded(
+            store_name, lambda: store.bulk_get([prefixer.apply(str(k)) for k in keys]))
         metrics.inc("state_bulk_get", len(keys), store=store_name)
         out = []
         for key, item in zip(keys, items):
@@ -184,10 +211,22 @@ class Runtime:
             ops.append(TransactionOp(operation=kind, key=prefixer.apply(str(req["key"])),
                                      value=req.get("value"), etag=req.get("etag")))
         started = time.perf_counter()
-        await store.transact(ops)
+        await self._guarded(store_name, lambda: store.transact(ops))
         metrics.inc("state_transact", store=store_name)
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="transact")
+
+    # -- secrets ---------------------------------------------------------
+
+    def get_secret(self, store_name: str, key: str) -> dict[str, str]:
+        self._authorize(store_name, "read")
+        store = self.registry.get(store_name, block="secretstores")
+        return {key: store.get(key)}
+
+    def bulk_secrets(self, store_name: str) -> dict[str, str]:
+        self._authorize(store_name, "read")
+        store = self.registry.get(store_name, block="secretstores")
+        return store.bulk()
 
     # -- pub/sub ---------------------------------------------------------
 
@@ -206,7 +245,8 @@ class Runtime:
         child = ctx.child()
         meta.update(hop_headers(child))
         started = time.time()
-        msg_id = await broker.publish(topic, envelope, metadata=meta)
+        msg_id = await self._guarded(
+            pubsub_name, lambda: broker.publish(topic, envelope, metadata=meta))
         elapsed = time.time() - started
         metrics.inc("publish", pubsub=pubsub_name, topic=topic)
         metrics.observe("publish_latency_seconds", elapsed, pubsub=pubsub_name, topic=topic)
@@ -252,27 +292,30 @@ class Runtime:
     async def _invoke_peer(self, target: str, path: str, http_method: str, query: str,
                            headers: dict[str, str], body: bytes) -> Reply:
         """Through the target's sidecar over HTTP, re-resolved on every
-        attempt (the peer may have come back on a new port)."""
+        attempt (the peer may have come back on a new port), under the
+        app's resiliency policy or else the builtin one."""
         token = os.environ.get(TOKEN_ENV)
         if token:  # the sidecars of one cluster share the token
             headers.setdefault(TOKEN_HEADER, token)
         target_path = f"/v1.0/invoke/{target}/method{path}" + (f"?{query}" if query else "")
-        last_exc: Exception | None = None
-        for attempt in range(INVOKE_ATTEMPTS):
+
+        async def attempt() -> Reply:
+            addr = self.resolver.resolve(target)
             try:
-                addr = self.resolver.resolve(target)
                 return await http_request(addr.host, addr.sidecar_port, http_method,
                                           target_path, headers=headers, body=body)
-            except (OSError, asyncio.IncompleteReadError, AppNotFound) as exc:
-                last_exc = exc
-                if attempt + 1 < INVOKE_ATTEMPTS:
-                    logger.warning("invoke %s attempt %d/%d failed (%s); retrying",
-                                   target, attempt + 1, INVOKE_ATTEMPTS, exc)
-                    await asyncio.sleep(INVOKE_RETRY_DELAY * (attempt + 1))
-        if isinstance(last_exc, AppNotFound):
-            raise last_exc
-        raise InvocationError(f"cannot reach sidecar of {target!r} after "
-                              f"{INVOKE_ATTEMPTS} attempts: {last_exc}") from last_exc
+            except asyncio.IncompleteReadError as exc:  # the peer hung up mid-reply
+                raise ConnectionResetError(f"{target} closed the connection: {exc}") from exc
+
+        policy = self.resiliency.for_app(target) if self.resiliency is not None else None
+        if policy is None:
+            policy = TargetPolicy(target, retry=_BUILTIN_INVOKE_RETRY, metered=False)
+        try:
+            return await policy.execute(attempt, retriable=(OSError, AppNotFound))
+        except (AppNotFound, InvocationError):
+            raise
+        except (OSError, TimeoutError) as exc:
+            raise InvocationError(f"cannot reach sidecar of {target!r}: {exc}") from exc
 
     # -- the consumer side -----------------------------------------------
 
@@ -314,11 +357,17 @@ class Runtime:
             self._authorize(pubsub_name, "subscribe", topic=topic)
             group = self.app_id or "default"
             cancel = await broker.subscribe(topic, group,
-                                            self._make_subscription_handler(route))
+                                            self._make_subscription_handler(pubsub_name, route))
             self._subscriptions.append((topic, group, cancel))
             logger.info("subscribed %s to %s/%s -> %s", self.app_id, pubsub_name, topic, route)
 
-    def _make_subscription_handler(self, route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
+    def _make_subscription_handler(self, pubsub_name: str,
+                                   route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
+        # the component's inbound policy retries a failing handler here,
+        # before the delivery counts as a nack
+        policy = (self.resiliency.for_component(pubsub_name, "inbound")
+                  if self.resiliency is not None else None)
+
         async def deliver(msg: Message) -> bool | Nack:
             wire_tp = msg.metadata.get(TRACEPARENT_HEADER)
             wire_bag = msg.metadata.get(BAGGAGE_HEADER)
@@ -331,10 +380,19 @@ class Runtime:
                            TRACEPARENT_HEADER: wire_tp or ctx.header}
                 if wire_bag:
                     headers[BAGGAGE_HEADER] = wire_bag
+                body = json.dumps(msg.data).encode()
+
+                async def deliver_once() -> Reply:
+                    return await self.app_channel.request("POST", route, headers=headers,
+                                                          body=body)
+
                 started = time.perf_counter()
                 try:
-                    status, reply_headers, _ = await self.app_channel.request(
-                        "POST", route, headers=headers, body=json.dumps(msg.data).encode())
+                    if policy is not None:
+                        status, reply_headers, _ = await policy.execute(deliver_once,
+                                                                        retriable=(OSError,))
+                    else:
+                        status, reply_headers, _ = await deliver_once()
                 except Exception:  # noqa: BLE001 - an unreachable app nacks
                     logger.exception("delivery to %s failed", route)
                     return False

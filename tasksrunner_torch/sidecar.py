@@ -11,6 +11,9 @@
   ``POST /v1.0/state/{store}/transaction`` (``{"operations": [...]}``);
 * ``POST /v1.0/publish/{pubsub}/{topic}`` (``?metadata.rawPayload=true``
   publishes the body unwrapped), answering ``{"messageId"}``;
+* ``GET /v1.0/secrets/{store}/{key}`` (``{key: value}``) and ``GET
+  /v1.0/secrets/{store}/bulk`` (every key of the store), after the app's
+  ``read`` grant on the store;
 * any method on ``/v1.0/invoke/{app_id}/method/{path}``: the caller's
   ``content-type``, ``accept`` and ``x-*`` headers go to the target, its
   reply comes back less the hop-by-hop headers;
@@ -177,6 +180,13 @@ class Sidecar:
                                            data, raw=raw)
             return _json_reply({"messageId": msg_id})
 
+        async def bulk_secrets(req: Request) -> Response:
+            return _json_reply(runtime.bulk_secrets(req.path_params["store"]))
+
+        async def get_secret(req: Request) -> Response:
+            return _json_reply(runtime.get_secret(req.path_params["store"],
+                                                  req.path_params["key"]))
+
         async def invoke(req: Request) -> Response:
             status, headers, body = await runtime.invoke(
                 req.path_params["app_id"], req.path_params["path"], http_method=req.method,
@@ -192,6 +202,8 @@ class Sidecar:
         add("POST", "/v1.0/state/{store}/bulk", bulk_get_state)
         add("POST", "/v1.0/state/{store}/transaction", transact_state)
         add("POST", "/v1.0/publish/{pubsub}/{topic}", publish)
+        add("GET", "/v1.0/secrets/{store}/bulk", bulk_secrets)  # before {key}
+        add("GET", "/v1.0/secrets/{store}/{key}", get_secret)
         # a peer app's own token passes here and nowhere else
         add("*", "/v1.0/invoke/{app_id}/method/{path:.*}", invoke, kind="peer")
         # never shed: an autoscaler reads its signals here under overload

@@ -36,7 +36,9 @@ class KeyPrefixer:
         return self.prefix + key
 
 
-def prefixer_for(metadata: dict[str, str], *, app_id: str | None,
-                 component_name: str) -> KeyPrefixer:
-    return KeyPrefixer(metadata.get("keyPrefix", "appid"), app_id=app_id,
+def prefixer_for(metadata: dict, *, app_id: str | None, component_name: str) -> KeyPrefixer:
+    """The component's ``keyPrefix`` strategy; ``appid`` when it is unset
+    or a secret ref (a strategy is never a secret)."""
+    raw = metadata.get("keyPrefix")
+    return KeyPrefixer(raw if isinstance(raw, str) else "appid", app_id=app_id,
                        component_name=component_name)

@@ -489,6 +489,63 @@ async def test_an_orchestrated_replica_runs_b1_on_the_card(card, tmp_path):
     assert launched["flash_bwd_delta"] == launched["flash_ring"] == 0
 
 
+async def test_a_deployed_replica_runs_b1_on_the_card(card, tmp_path, monkeypatch):
+    """``deploy apply`` of a manifest whose state store's database comes
+    from a file secret store, then the orchestrator on the run file it
+    wrote: the replica answers ``/score`` on the card and stores a
+    published event in the file the secret names; its kernel launch
+    counts are the forward's per layer for each batch it served."""
+    import asyncio
+    import json
+    import sqlite3
+
+    from tasksrunner_torch.client import http_request
+    from tasksrunner_torch.deploy import apply_manifest, load_manifest
+    from tasksrunner_torch.orchestrator.config import load_run_config
+    from tasksrunner_torch.orchestrator.run import Orchestrator
+
+    monkeypatch.setenv("TASKSRUNNER_API_TOKEN", "card-test")
+    (tmp_path / "secrets.json").write_text(json.dumps({"db": str(tmp_path / "scores.db")}))
+    (tmp_path / "vault.yaml").write_text(
+        "componentType: secretstores.local.file\nmetadata:\n- name: secretsFile\n"
+        f"  value: {tmp_path / 'secrets.json'}\n")
+    (tmp_path / "scores.yaml").write_text(
+        "componentType: state.sqlite\nsecretStoreComponent: vault\nmetadata:\n"
+        "- name: databasePath\n  secretRef: db\n")
+    (tmp_path / "env.yaml").write_text(
+        "environment:\n  name: card\n  require_api_token: true\ncomponents:\n"
+        "  - name: vault\n    file: vault.yaml\n  - name: scores\n    file: scores.yaml\n"
+        "apps:\n  - app_id: priority-scorer\n    module: tasksrunner_torch.service:make_app\n"
+        "    env:\n      TASKSRUNNER_ML_BUCKETS: \"1,8\"\n")
+    config = load_run_config(apply_manifest(load_manifest(tmp_path / "env.yaml"))["run_config"])
+    orch = Orchestrator(config)
+    await asyncio.wait_for(orch.start(), 30)
+    token = {"tr-api-token": "card-test"}
+    try:
+        [replica] = orch.replicas["priority-scorer"]
+        await asyncio.wait_for(replica.ready.wait(), 120)
+        body = json.dumps({"taskId": "t", "taskName": "rotate the keys"}).encode()
+        path = "/v1.0/invoke/priority-scorer/method/score"
+        while (reply := await http_request("127.0.0.1", replica.ports[1], "POST", path,
+                                           headers=token, body=body))[0] == 503:
+            await asyncio.sleep(0.25)
+        assert reply[0] == 200, reply
+        saved = json.dumps([{"key": "t", "value": json.loads(reply[2])}]).encode()
+        status, _, _ = await http_request("127.0.0.1", replica.ports[1], "POST",
+                                          "/v1.0/state/scores", headers=token, body=saved)
+        assert status == 204
+        stats = json.loads((await http_request("127.0.0.1", replica.ports[0], "GET",
+                                               "/ml/stats"))[2])
+    finally:
+        await asyncio.wait_for(orch.stop(), 60)
+    with sqlite3.connect(tmp_path / "scores.db") as conn:
+        assert [k for (k,) in conn.execute("SELECT key FROM state")] == ["priority-scorer||t"]
+    [line] = [x for x in replica.log_buffer if " kernel launches " in x]
+    launched = json.loads(line.split(" pid=")[1].split(" ", 1)[1])
+    assert launched["flash_fwd"] == ModelConfig().n_layers * sum(
+        1 + stats["batches"].get(str(b), 0) for b in stats["buckets"])
+
+
 def _bf16_steps(got, want):
     """The largest |got − want| in bf16 steps, each element's step taken
     at its magnitude or at want's rms, whichever is larger: a sum that

@@ -34,8 +34,8 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
-    # every module, the request path's observability, the sidecar and the
-    # orchestrator among them
+    # every module, the request path's observability, the sidecar, the
+    # orchestrator, resiliency, secrets and deploy among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
                  "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
@@ -44,7 +44,11 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                  "tasksrunner_torch.component.blockyaml",
                  "tasksrunner_torch.orchestrator.config", "tasksrunner_torch.orchestrator.run",
                  "tasksrunner_torch.orchestrator.autoscale",
-                 "tasksrunner_torch.orchestrator.admin", "tasksrunner_torch.state.lease"):
+                 "tasksrunner_torch.orchestrator.admin", "tasksrunner_torch.state.lease",
+                 "tasksrunner_torch.resiliency.policy", "tasksrunner_torch.resiliency.spec",
+                 "tasksrunner_torch.secrets.base", "tasksrunner_torch.secrets.local",
+                 "tasksrunner_torch.secrets.resolver", "tasksrunner_torch.secrets.drivers",
+                 "tasksrunner_torch.deploy.manifest", "tasksrunner_torch.deploy.plan"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
