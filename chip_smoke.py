@@ -95,8 +95,8 @@ exit, traceback) at the first phase that does not hold:
    token, a secret from the deploying environment) whose ``scores`` store
    (the sample's cloud-dialect file) takes its database path by
    ``secretRef`` from a file secret store: ``validate`` (exit 0; a broken
-   copy with a ``bindings.cron`` component whose scope names no app exits
-   1 with both problems), ``what-if``, ``apply``, ``what-if`` (no
+   copy with the sample's ``bindings.cron`` component, whose scope names
+   no app, exits 1 with that problem), ``what-if``, ``apply``, ``what-if`` (no
    changes); ``run`` on the applied run file, the floor held at 2; a
    publisher's sidecar whose resources hold the applied components and
    the sample's Resiliency document retargeted at the scorer (timeout
@@ -111,6 +111,28 @@ exit, traceback) at the first phase that does not hold:
    its ``/ml/stats``); ``down``, then ``what-if`` lists the environment
    again. Prints each verb's seconds, spawn → ready, crash → ready,
    events/s, the retries and the card's memory a replica;
+8e. bindings: ``python -m tasksrunner_torch run`` over a run file whose
+   one app is the scorer, 1 to 3 replicas by a ``queue-backlog`` rule on
+   the sample's storage-queue binding (+1 per 16 messages, a 3 s
+   cooldown), its file rewritten to feed ``/on-task-saved`` from a queue
+   in a temp directory (``maxRetries`` and ``retryDelaySeconds`` set so a
+   replica's warm-up 503s cannot use up a message), beside the sample's
+   blob and SendGrid bindings: 32 messages from an outside producer
+   (``bindings.SqliteQueue.send``) on one replica (its ceiling held at
+   1), a burst of 192 and the scaler's decision on the backlog, messages
+   sent on until both new replicas stored a score, 192 on three; a
+   message that is no task (acked, nothing stored); the queue's ``create``
+   (scored and stored), a blob's ``create`` and ``get`` (equal bytes) and
+   one mail through a replica's sidecar; the scores read back through
+   ``POST /v1.0/state/scores/query`` (EQ on ``priority``, sorted by
+   ``confidence`` DESC, 50 a page), their union the store's keys and each
+   value its ``GET``; every message acked once over the replicas'
+   deliveries, no dead letter, a backlog of 0; the floor back at 1, the
+   scale-in, SIGTERM, each clean stop's B1 launches equal to its
+   ``/ml/stats``, each stored score within 2e-2 of the scorer's in this
+   process. Prints messages/s on one and three replicas,
+   enqueue → stored, backlog → decision, spawn → ready, the retries, the
+   query's ms a page and the card's memory a replica;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -2116,7 +2138,7 @@ async def _deploy_phase(data: Path) -> dict:
     env = {**os.environ, TOKEN_ENV: DEPLOY_TOKEN, DEPLOY_KEY_VAR: "sk-smoke"}
     verbs: dict[str, float] = {}
 
-    # 1. validate; a broken copy (a scope naming no app, a bindings component)
+    # 1. validate; a broken copy (a cron binding whose scope names no app)
     lines, verbs["validate"] = _deploy_verb(env, "validate", manifest)
     check(lines == [f"manifest '{DEPLOY_ENV}' is valid (1 apps, 3 components)"], f"{lines}")
     broken = data / "broken"
@@ -2127,8 +2149,7 @@ async def _deploy_phase(data: Path) -> dict:
     (broken / "env.yaml").write_text(manifest.read_text().replace(
         "components:\n", "components:\n  - name: nightly\n    file: cron.yaml\n", 1))
     problems, verbs["validate_broken"] = _deploy_verb(env, "validate", broken / "env.yaml", 1)
-    check(problems == ["ERROR: component 'nightly': no driver for type 'bindings.cron'",
-                       "ERROR: component 'nightly': scope 'tasksmanager-backend-processor' "
+    check(problems == ["ERROR: component 'nightly': scope 'tasksmanager-backend-processor' "
                        "matches no app"], f"the broken manifest's problems: {problems}")
     # 2. what-if, apply, what-if
     created, verbs["what_if"] = _deploy_verb(env, "what-if", manifest)
@@ -2386,6 +2407,339 @@ def phase_deploy(smi: str) -> int:
     emit({"phase": "deploy", "nvidia_smi": smi, **result,
           "seconds": time.monotonic() - started, "flash_launches": launched})
     check(launched > 0, "the deployed replicas launched no flash kernel")
+    return launched
+
+
+# the bindings phase: the scorer fed from the sample's storage-queue binding
+# (an outside producer's messages POSTed to /on-task-saved), 1 to 3 replicas
+# by the queue's backlog; maxRetries and retryDelaySeconds set so that the
+# 503s of a starting replica's warm-up (about 0.5 s apart, 8-12 s) cannot use
+# up a message's deliveries: every message must still be stored, once
+QUEUE = "externaltasksmanager"
+QUEUE_FILE = "external-tasks-queue.db"
+BLOBS, BLOB_CONTAINER, MAIL = "externaltasksblobstore", "externaltaskscontainer", "sendgrid"
+BIND_MAX_RETRIES, BIND_RETRY_DELAY_S = 1000, 0.5
+BIND_FIRST, BIND_BURST, BIND_QUERY_PAGE = 32, 192, 50
+BOUND_200 = f"binding_delivery{{binding={QUEUE},status=200}}"
+
+
+def _bindings_files(data: Path) -> Path:
+    """The store (``_write_components``' ``scores``), the sample's queue,
+    blob and SendGrid binding files with their paths moved into ``data``
+    and scoped to the scorer, and the run file; returns the run file."""
+    comps = data / "components"
+    _write_components(comps, data)
+    (comps / "pubsub-redis.yaml").unlink()  # the queue feeds the scorer here
+    samples = {name: (SAMPLE_COMPONENTS / name).read_text() for name in (
+        "bindings-in-storagequeue.yaml", "bindings-out-blobstorage.yaml",
+        "bindings-out-sendgrid.yaml")}
+    scope = "- tasksmanager-backend-processor"
+    check(all(scope in text for text in samples.values())
+          and "    value: /externaltasksprocessor/process\n" in samples[
+              "bindings-in-storagequeue.yaml"], "the sample's binding files changed")
+    (comps / "queue.yaml").write_text(
+        samples["bindings-in-storagequeue.yaml"]
+        .replace(".tasksrunner/queues", str(data / "queues"))
+        .replace("/externaltasksprocessor/process", "/on-task-saved")
+        .replace(scope, f"- {APP_ID}")
+        .replace("scopes:", f"  - name: maxRetries\n    value: \"{BIND_MAX_RETRIES}\"\n"
+                            f"  - name: retryDelaySeconds\n    value: \"{BIND_RETRY_DELAY_S}\"\n"
+                            "scopes:"))
+    (comps / "blobs.yaml").write_text(
+        samples["bindings-out-blobstorage.yaml"]
+        .replace(".tasksrunner/blobs", str(data / "blobs")).replace(scope, f"- {APP_ID}"))
+    (comps / "sendgrid.yaml").write_text(
+        samples["bindings-out-sendgrid.yaml"]
+        .replace(".tasksrunner/outbox", str(data / "outbox")).replace(scope, f"- {APP_ID}"))
+    run_file = data / "run.yaml"
+    run_file.write_text(
+        f"resources_path: {comps}\nregistry_file: {data / 'apps.json'}\napps:\n"
+        f"  - app_id: {APP_ID}\n    module: tasksrunner_torch.service:make_app\n"
+        "    health: { interval_seconds: 1 }\n"
+        f"    scale:\n      min_replicas: 1\n      max_replicas: {ORCH_MAX}\n"
+        f"      cooldown_seconds: {ORCH_COOLDOWN_S}\n      rules:\n"
+        f"        - type: queue-backlog\n          metadata:\n            component: {QUEUE}\n"
+        f"            messageCount: \"{ORCH_PER_REPLICA}\"\n")
+    return run_file
+
+
+def _queue_rows(path: Path) -> dict[str, tuple[int, int]]:
+    """Each message's (attempts, done): done 1 acked, 2 dead-lettered."""
+    with contextlib.closing(sqlite3.connect(path, timeout=5)) as conn:
+        return {i: (a, d) for i, a, d in conn.execute("SELECT id, attempts, done FROM queue")}
+
+
+async def _bindings_phase(data: Path) -> dict:
+    """The phase's run, on the card."""
+    from tasksrunner_torch.bindings import SqliteQueue
+
+    run_file = _bindings_files(data)
+    registry = data / "apps.json"
+    baseline = len(_card_apps()[0])
+    orch = _Orchestrated(run_file, data, None)
+    phase_t = time.monotonic()
+    watch = _StoreWatch(data / "scores.db")
+    producer = SqliteQueue(data / "queues" / QUEUE_FILE)
+    sent: dict[str, float] = {}  # task id → when it was enqueued
+    tasks_by_id: dict[str, dict] = {}
+    last_stats: dict[int, dict] = {}  # replica pid → its last /ml/stats
+    try:
+        def send(n: int, prefix: str) -> dict[str, float]:
+            """n task messages into the queue file, as an outside producer."""
+            out = {}
+            for i in range(n):
+                task = _saved_task(prefix, len(tasks_by_id))
+                tasks_by_id[task["taskId"]] = task
+                out[task["taskId"]] = time.monotonic()
+                producer.send(task)
+            sent.update(out)
+            return out
+
+        async def drained(batch: dict[str, float], seconds: float) -> dict:
+            await _until(lambda: all(k in watch.first_seen for k in batch), seconds,
+                         f"messages not stored: {sum(k in watch.first_seen for k in batch)} "
+                         f"of {len(batch)}")
+            first, last = min(batch.values()), max(watch.first_seen[k] for k in batch)
+            return {"messages": len(batch), "drain_s": last - first,
+                    "messages_per_s": len(batch) / (last - first),
+                    "enqueue_to_stored_ms": _p50_max_ms(
+                        [watch.first_seen[k] - t for k, t in batch.items()])}
+
+        async def stats(app_port: int) -> dict:
+            status, _, body = await _http(app_port, "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats answered {status}")
+            return json.loads(body)
+
+        async def delivered(sidecar_port: int) -> float:
+            status, _, body = await _http(sidecar_port, "GET", "/v1.0/metadata")
+            check(status == 200, f"/v1.0/metadata answered {status}")
+            return json.loads(body)["metrics"].get(BOUND_200, 0)
+
+        # 1. replica 0 alone, its ceiling held at 1 for the first 32
+        await _until(lambda: orch.ready(0), 600, "replica 0 printed no ready line")
+        ready0_t, fields0 = orch.ready(0)[0]
+        while not (await stats(int(fields0["app_port"])))["ready"]:
+            await asyncio.sleep(0.05)
+        spawn_ready_s = {"0": ready0_t - orch.spawned(0)[0][0]}
+        orch.admin_url = json.loads((data / "orchestrator.json").read_text())["admin_url"]
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"max_replicas": 1})
+        one_replica = await drained(send(BIND_FIRST, "q-first"), 60)
+
+        # 2. the ceiling back at 3 and a burst of 192: the scaler's decision
+        # on the backlog, messages sent on while the new replicas start (so
+        # the backlog holds) until each has stored a score
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"max_replicas": ORCH_MAX})
+        check(not orch.err.find(SCALED_OUT), "a scale-out under the ceiling of 1")
+        burst_t = time.monotonic()
+        burst = send(BIND_BURST, "q-burst")
+        await _until(lambda: orch.err.find(SCALED_OUT), 60, "no scale-out decision")
+        decision_t, decision = orch.err.find(SCALED_OUT)[0]
+        ports: dict[int, int] = {0: int(fields0["sidecar_port"])}
+        first_score: dict[int, float] = {}
+        deadline = time.monotonic() + 180
+        while len(first_score) < ORCH_MAX - 1:
+            check(time.monotonic() < deadline, "the new replicas did not all serve")
+            for i in range(1, ORCH_MAX):
+                if i not in ports and orch.ready(i):
+                    ports[i] = int(orch.ready(i)[0][1]["sidecar_port"])
+                if i in ports and i not in first_score and await delivered(ports[i]) > 0:
+                    first_score[i] = time.monotonic()
+            if producer.backlog() < ORCH_MAX * ORCH_PER_REPLICA:
+                send(ORCH_PER_REPLICA, "q-sustain")
+            await asyncio.sleep(0.05)
+        # the floor at 3 until every replica's stats are read (no scale-in first)
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"min_replicas": ORCH_MAX})
+        three = send(BIND_BURST, "q-three")
+        replicas = await orch.replicas()
+        check(len(replicas) == ORCH_MAX and all(r["running"] for r in replicas),
+              f"the scaler did not reach {ORCH_MAX} replicas: {replicas}")
+        on_card = _check_on_card([r["pid"] for r in replicas], "while serving", baseline)
+        three_replicas = await drained(three, 120)
+        for i in range(1, ORCH_MAX):
+            spawn_ready_s[str(i)] = orch.ready(i)[0][0] - orch.spawned(i)[0][0]
+        scale_out = {"backlog_to_decision_s": decision_t - burst_t,
+                     "decision": decision.split(" INFO ")[-1],
+                     "decision_to_ready_s": {str(i): orch.ready(i)[0][0] - decision_t
+                                             for i in range(1, ORCH_MAX)},
+                     "decision_to_first_score_s": {str(i): first_score[i] - decision_t
+                                                   for i in range(1, ORCH_MAX)},
+                     "burst": await drained(burst, 120)}
+        await _until(lambda: all(k in watch.first_seen for k in sent), 120,
+                     "not every message was stored")
+
+        # 3. a message that is no task: acked, nothing stored
+        stray = producer.send({"note": "not a task"})
+        await _until(lambda: _queue_rows(data / "queues" / QUEUE_FILE)[stray][1] == 1, 30,
+                     "the stray message was not acked")
+
+        # 4. the output bindings through replica 0's sidecar
+        sidecar = ports[0]
+
+        async def bind(name: str, body: dict) -> dict:
+            status, _, reply = await _http(sidecar, "POST", f"/v1.0/bindings/{name}",
+                                           json.dumps(body).encode())
+            check(status == 200, f"binding {name} answered {status}: {reply!r}")
+            return json.loads(reply)
+
+        task = _saved_task("q-binding", len(tasks_by_id))
+        tasks_by_id[task["taskId"]] = task
+        sent[task["taskId"]] = time.monotonic()
+        created = await bind(QUEUE, {"operation": "create", "data": task})
+        check(created["metadata"].get("messageId") in _queue_rows(data / "queues" / QUEUE_FILE),
+              f"the queue's create answered {created}")
+        blob_name = f"{task['taskId']}.json"
+        text = json.dumps(task, indent=2)
+        await bind(BLOBS, {"operation": "create", "data": text,
+                           "metadata": {"blobName": blob_name}})
+        got = await bind(BLOBS, {"operation": "get", "metadata": {"blobName": blob_name}})
+        on_disk = (data / "blobs" / BLOB_CONTAINER / blob_name).read_bytes()
+        check(got["data"] == text and on_disk == text.encode(),
+              f"the blob read back differs: {got}")
+        await bind(MAIL, {"operation": "create", "data": f"task {task['taskId']} scored",
+                          "metadata": {"emailTo": "ops@example.com", "subject": "scored"}})
+        mails = [json.loads(p.read_text()) for p in (data / "outbox").glob("*.json")]
+        check(len(mails) == 1 and mails[0]["to"] == "ops@example.com"
+              and mails[0]["from"] == "noreply@tasksrunner.local", f"the outbox holds {mails}")
+        await _until(lambda: task["taskId"] in watch.first_seen, 30,
+                     "the binding's message was not stored")
+
+        # 5. the scores read back through the query route, page by page
+        keys = sorted(k.split("||", 1)[1] for k in _store_keys(data / "scores.db"))
+        check(keys == sorted(sent), f"the store holds {len(keys)} keys, not {len(sent)}")
+        union: dict[str, dict] = {}
+        page_s: list[float] = []
+        for priority in service.PRIORITY_LABELS:
+            token, last = None, math.inf
+            while True:
+                page = {"limit": BIND_QUERY_PAGE, **({"token": token} if token else {})}
+                query = {"filter": {"EQ": {"priority": priority}},
+                         "sort": [{"key": "confidence", "order": "DESC"}], "page": page}
+                started = time.monotonic()
+                status, _, reply = await _http(sidecar, "POST", "/v1.0/state/scores/query",
+                                               json.dumps(query).encode())
+                page_s.append(time.monotonic() - started)
+                check(status == 200, f"the query answered {status}: {reply!r}")
+                doc = json.loads(reply)
+                for row in doc["results"]:
+                    check(row["data"]["priority"] == priority and row["key"] not in union
+                          and row["data"]["confidence"] <= last,
+                          f"query row out of place: {row}")
+                    last = row["data"]["confidence"]
+                    union[row["key"]] = row["data"]
+                token = doc["token"]
+                if token is None:
+                    break
+        check(sorted(union) == keys, f"the query found {len(union)} keys, not {len(keys)}")
+        for key, value in union.items():
+            status, _, reply = await _http(sidecar, "GET", f"/v1.0/state/scores/{key}")
+            check(status == 200 and json.loads(reply) == value, f"GET {key} differs: {reply!r}")
+
+        # 6. every replica's stats and deliveries, then the floor back at 1
+        # and the scale-in after the cooldown
+        replicas = await orch.replicas()
+        check(len(replicas) == ORCH_MAX and all(r["running"] and r["restarts"] == 0
+                                                for r in replicas),
+              f"a replica restarted or is down: {replicas}")
+        acked = 0.0
+        for r in replicas:
+            last_stats[r["pid"]] = await stats(r["app_port"])
+            acked += await delivered(r["sidecar_port"])
+        rows = _queue_rows(data / "queues" / QUEUE_FILE)
+        check(acked == len(rows) == len(sent) + 1 and all(d == 1 for _, d in rows.values()),
+              f"{acked} deliveries acked, {len(rows)} messages, {len(sent) + 1} sent, "
+              f"{sum(d == 2 for _, d in rows.values())} dead letters")
+        released_t = time.monotonic()
+        await orch.admin("POST", f"/apps/{APP_ID}/scale", {"min_replicas": 1})
+        await _until(lambda: orch.err.find(SCALED_IN), 60, "no scale-in")
+        scale_in_decision_s = orch.err.find(SCALED_IN)[0][0] - released_t
+        deadline = time.monotonic() + 60
+        while len(await orch.replicas()) > 1:
+            check(time.monotonic() < deadline, "the app did not scale in to 1")
+            await asyncio.sleep(0.05)
+        scaled_in = {"decision_s": scale_in_decision_s,
+                     "one_replica_s": time.monotonic() - released_t}
+
+        # 7. SIGTERM: every replica leaves the card and the registry and
+        # logs its launches
+        rc = orch.stop()
+        check(rc == 0, f"the orchestrator exited {rc}: "
+                       f"{(data / 'orchestrator.log').read_text()[-3000:]}")
+        after = _check_on_card([], "after the stop", baseline)
+        left = json.loads(registry.read_text())
+        check(left == {}, f"entries left in the registry: {left}")
+        counted = {}
+        for _, line in orch.out.find(" kernel launches app=priority-scorer pid="):
+            pid, launches = line.split(" pid=", 1)[1].split(" ", 1)
+            counted[int(pid)] = json.loads(launches)
+        check(sorted(counted) == sorted(last_stats),
+              f"kernel launch lines for {sorted(counted)}, replicas {sorted(last_stats)}")
+        cards = torch.cuda.device_count()
+        expected = {p: expected_serve_launches(s, cards) for p, s in last_stats.items()}
+        check(all(counted[p]["flash_fwd"] == expected[p] for p in expected),
+              f"B1 launches {counted} != expected {expected}")
+        check(all(v == 0 for c in counted.values() for k, v in c.items() if k != "flash_fwd"),
+              f"a replica launched a backward or ring kernel: {counted}")
+        watch.stop()
+
+        # the stored scores against the scorer's math in this process
+        with contextlib.closing(sqlite3.connect(data / "scores.db")) as conn:
+            stored = {k.split("||", 1)[1]: json.loads(v)
+                      for k, v in conn.execute("SELECT key, value FROM state")}
+        check(sorted(stored) == keys, "the store changed after the query")
+        device = torch.device("cuda", 0)
+        probs = service.batch_probs(
+            [init_params(SERVED, 0, device)], [device],
+            np.stack([service.task_tokens(tasks_by_id[k], SERVED) for k in keys]), cfg=SERVED)
+        worst = 0.0
+        for row, k in zip(probs, keys):
+            label = service.PRIORITY_LABELS.index(stored[k]["priority"])
+            check(row[label] >= row.max() - SCORE_TOL,
+                  f"{k}: stored {stored[k]} but the scorer gives {row.tolist()}")
+            worst = max(worst, abs(float(row[label]) - stored[k]["confidence"]))
+        check(worst <= SCORE_TOL, f"stored confidence off by {worst}")
+        attempts = [a for a, _ in rows.values()]
+        return {"spawn_to_ready_s": spawn_ready_s, "one_replica": one_replica,
+                "scale_out": scale_out, "three_replicas": three_replicas,
+                "scale_in_after_floor_released": scaled_in,
+                "scaler": [(t - phase_t, line.split(" INFO ")[-1]) for t, line
+                           in orch.err.find(f"scaling {APP_ID} ")],
+                "messages": len(rows), "stored_keys": len(keys), "dead_letters": 0,
+                "backlog": producer.backlog(), "retries": sum(attempts) - len(attempts),
+                "most_attempts": max(attempts),
+                "query_pages": len(page_s), "query_ms_per_page": _p50_max_ms(page_s),
+                "on_card": on_card, "after_stop": after,
+                "card_memory_per_replica_mib":
+                    (_mib(on_card["memory_used"]) - _mib(after["memory_used"])) / ORCH_MAX,
+                "max_abs_err_confidence": worst,
+                "launches": {str(p): c["flash_fwd"] for p, c in counted.items()},
+                "expected_launches": {str(p): e for p, e in expected.items()}}
+    except BaseException:
+        for t, line in sorted(orch.err.lines + [x for x in orch.out.lines if any(
+                w in x[1] for w in (" ready ", "WARNING", "ERROR", "Traceback", "Error"))]
+                )[-80:]:
+            print(f"{t - phase_t:9.3f} {line}", file=sys.stderr)
+        raise
+    finally:
+        watch.stop()
+        producer.close()
+        orch.kill()
+        for entry in (json.loads(registry.read_text()).get(APP_ID, [])
+                      if registry.exists() else []):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(entry["pid"], signal.SIGKILL)  # replicas a failed run left behind
+
+
+def phase_bindings(smi: str) -> int:
+    """The scorer fed from a queue binding and scaled by the queue's
+    backlog under ``python -m tasksrunner_torch run``: returns B1's
+    launches in its replicas."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bindings-") as data:
+        result = asyncio.run(_bindings_phase(Path(data)))
+    launched = sum(result["launches"].values())
+    emit({"phase": "bindings", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched})
+    check(launched > 0, "the queue-fed replicas launched no flash kernel")
     return launched
 
 
@@ -2957,7 +3311,7 @@ def main() -> int:
     phase_ring()
     phase_forward()
     launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)
-                + phase_orchestrator(smi) + phase_deploy(smi)}
+                + phase_orchestrator(smi) + phase_deploy(smi) + phase_bindings(smi)}
     trained = phase_train()
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = phase_sequence_parallel()

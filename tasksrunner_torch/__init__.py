@@ -32,7 +32,9 @@ each counterpart is easy to find:
   (``AppClient``: in-process, beside a runtime, or over HTTP to a
   sidecar), ``runtime`` and ``sidecar`` (the Dapr-shaped HTTP API),
   ``component`` (component files and the driver registry), ``state``
-  and ``pubsub`` (in-memory, and the durable sqlite store and broker),
+  and ``pubsub`` (in-memory, and the durable sqlite store and broker;
+  the state query dialect in ``state.query``), ``bindings`` (the sqlite
+  queue, cron, blob and mail bindings),
   ``invoke`` (the app-id resolver), ``security`` (grants),
   ``admission``, ``tracing``, ``spans`` (the runtime's sqlite trace
   file) and ``cloudevents``

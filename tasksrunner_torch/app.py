@@ -11,6 +11,10 @@ of ``tasksrunner/app.py`` and of its HTTP adapter
   advertised at ``GET /dapr/subscribe`` and ``GET /tasksrunner/subscribe``
   for the runtime that delivers the events; ``Request.data`` is the body
   with its CloudEvents envelope removed.
+* Input binding handlers (``@app.binding(name, route=None)``, the route
+  ``/<name>`` by default, the cron convention): the runtime POSTs each of
+  the binding's events there; ``Request.data`` is the raw JSON, since a
+  binding's event has no envelope.
 * ``/tasksrunner/healthz`` answers 204 whatever the app registers, and
   ``/healthz`` answers 204 unless the app registers its own.
 * ``GET /tasksrunner/stats`` answers ``{"inflight", "requests_total"}``,
@@ -21,8 +25,8 @@ of ``tasksrunner/app.py`` and of its HTTP adapter
 * An incoming ``traceparent`` (and ``baggage``) opens a trace scope
   around the handler. With spans recorded, each routed request records
   one span around its handler, ``f"{METHOD} {path}"`` with the response
-  status: kind ``consumer`` for a subscription's route, ``server``
-  otherwise, as the JAX ``App`` names them.
+  status: kind ``consumer`` for a subscription's or a binding's route,
+  ``server`` otherwise, as the JAX ``App`` names them.
 * With an :class:`~tasksrunner_torch.admission.AdmissionController`
   (``TASKSRUNNER_ADMISSION``) that is shedding, every path but
   ``/healthz`` and ``/tasksrunner/*`` is answered 429 + ``Retry-After``
@@ -165,8 +169,9 @@ class _Route:
         self.method = method  # "*" for any
         self.path = path
         self.handler = handler
-        #: "http", or "subscription" for a topic's delivery route; the
-        #: sidecar's "exempt" (never shed) and "peer" (a peer's token passes)
+        #: "http", "subscription" for a topic's delivery route, "binding"
+        #: for an input binding's; the sidecar's "exempt" (never shed) and
+        #: "peer" (a peer's token passes)
         self.kind = kind
         self.segments = _segments(path)
 
@@ -285,6 +290,12 @@ class App:
             self.subscriptions.append({"pubsubname": pubsub, "topic": topic, "route": route})
             return self.route("POST", route, kind="subscription")(fn)
         return register
+
+    def binding(self, name: str, route: str | None = None) -> Callable[[Handler], Handler]:
+        """The events of input binding ``name`` come to ``POST route``
+        (``/<name>`` by default)."""
+        route = route or f"/{name}"
+        return self.route("POST", route, kind="binding")
 
     def on_startup(self, fn: Callable[[], Awaitable[None]]):
         self._startup.append(fn)
@@ -429,7 +440,7 @@ class App:
             response = await self._call(route, request)
             if recording:
                 spans.record_span(
-                    kind="consumer" if route.kind == "subscription" else "server",
+                    kind="consumer" if route.kind in ("subscription", "binding") else "server",
                     name=f"{method} {path}", status=response.status, start=started,
                     duration=time.time() - started, trace_id=ctx.trace_id,
                     span_id=ctx.span_id, parent_id=ctx.parent_id)

@@ -1,18 +1,25 @@
 """The app's runtime client: the part of ``tasksrunner/client.py``'s
-``AppClient`` the scorer uses, with its two transports behind one surface
-(``save_state``, ``get_state``, ``publish_event``, ``invoke_method``).
+``AppClient`` the scorer and its callers use, with its transports behind
+one surface (``save_state``, ``get_state``, ``query_state``,
+``query_state_values``, ``publish_event``, ``invoke_binding``,
+``invoke_method``).
 
 * :meth:`AppClient.http` talks to a sidecar over HTTP/1.1 on
   ``127.0.0.1``: the Dapr-shaped ``/v1.0/state/{store}``,
-  ``/v1.0/state/{store}/{key}``, ``/v1.0/publish/{pubsub}/{topic}`` and
-  ``/v1.0/invoke/{app}/method/{path}``. The port is the one given, else
-  ``TASKSRUNNER_HTTP_PORT`` read at each call (so an app may be built
-  before its sidecar has a port), else 3500. ``tr-api-token`` goes with
+  ``/v1.0/state/{store}/{key}``, ``/v1.0/state/{store}/query``,
+  ``/v1.0/publish/{pubsub}/{topic}``, ``/v1.0/bindings/{name}`` and
+  ``/v1.0/invoke/{app}/method/{path}``; a state, publish or binding call
+  answered with an error status raises
+  :class:`~tasksrunner_torch.errors.InvocationError` with the status.
+  The port is the one given, else ``TASKSRUNNER_HTTP_PORT`` read at
+  each call (so an app may be built before its sidecar has a port),
+  else 3500. ``tr-api-token`` goes with
   every call when ``TASKSRUNNER_API_TOKEN`` is set, and a ``traceparent``
   child of the ambient trace. Requests go over asyncio streams, never a
   blocking client on the event loop.
 * :meth:`AppClient.direct` goes through an in-process host
-  (:class:`~tasksrunner_torch.hosting.InProcHost`).
+  (:class:`~tasksrunner_torch.hosting.InProcHost`): state, publish and
+  invoke, no queries and no bindings.
 * :meth:`AppClient.runtime` calls a :class:`~tasksrunner_torch.runtime.Runtime`
   in the same process (an app beside its sidecar in
   :class:`~tasksrunner_torch.hosting.AppHost`).
@@ -26,6 +33,7 @@ import os
 from typing import Any
 from urllib.parse import quote
 
+from tasksrunner_torch.bindings.base import BindingResponse
 from tasksrunner_torch.errors import InvocationError
 from tasksrunner_torch.tracing import TRACEPARENT_HEADER, outgoing_headers
 
@@ -132,10 +140,25 @@ class _HTTPTransport:
             f"/v1.0/state/{quote(store)}/{quote(key, safe='')}")
         return json.loads(payload) if status == 200 and payload else None
 
+    async def query_state(self, store: str, query: dict) -> dict:
+        _, payload = await self._checked(f"query state {store}", "POST",
+                                         f"/v1.0/state/{quote(store)}/query",
+                                         json.dumps(query).encode())
+        return json.loads(payload)
+
     async def publish(self, pubsub: str, topic: str, data: Any) -> None:
         await self._checked(f"publish {pubsub}/{topic}", "POST",
                             f"/v1.0/publish/{quote(pubsub)}/{quote(topic)}",
                             json.dumps(data).encode())
+
+    async def invoke_binding(self, name: str, operation: str, data: Any,
+                             metadata: dict[str, str] | None) -> BindingResponse:
+        _, payload = await self._checked(
+            f"binding {name}", "POST", f"/v1.0/bindings/{quote(name)}",
+            json.dumps({"operation": operation, "data": data,
+                        "metadata": metadata or {}}).encode())
+        doc = json.loads(payload)
+        return BindingResponse(data=doc.get("data"), metadata=doc.get("metadata") or {})
 
     async def invoke(self, app_id: str, method_path: str, http_method: str,
                      headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
@@ -174,8 +197,15 @@ class _RuntimeTransport:
         item = await self._rt.get_state(store, key)
         return None if item is None else item.value
 
+    async def query_state(self, store: str, query: dict) -> dict:
+        return await self._rt.query_state(store, query)
+
     async def publish(self, pubsub: str, topic: str, data: Any) -> None:
         await self._rt.publish(pubsub, topic, data)
+
+    async def invoke_binding(self, name: str, operation: str, data: Any,
+                             metadata: dict[str, str] | None) -> BindingResponse:
+        return await self._rt.invoke_output_binding(name, operation, data, metadata)
 
     async def invoke(self, app_id: str, method_path: str, http_method: str,
                      headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
@@ -211,9 +241,22 @@ class AppClient:
         """The value under ``key``, or None when there is none."""
         return await self._t.get_state(store, key)
 
+    async def query_state(self, store: str, query: dict) -> dict:
+        """``{"results": [{key, data, etag}], "token"}``: one page of the
+        app's keys that match ``query``."""
+        return await self._t.query_state(store, query)
+
+    async def query_state_values(self, store: str, query: dict) -> list[Any]:
+        return [r["data"] for r in (await self._t.query_state(store, query))["results"]]
+
     async def publish_event(self, pubsub: str, topic: str, data: Any) -> None:
         """Publish ``data``; the runtime wraps it in a CloudEvent."""
         await self._t.publish(pubsub, topic, data)
+
+    async def invoke_binding(self, name: str, operation: str, data: Any = None,
+                             metadata: dict[str, str] | None = None) -> BindingResponse:
+        """Run ``operation`` on the output binding ``name``."""
+        return await self._t.invoke_binding(name, operation, data, metadata)
 
     async def invoke_method(self, app_id: str, method_path: str, *,
                             http_method: str = "POST", data: Any = None,

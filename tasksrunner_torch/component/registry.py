@@ -14,7 +14,14 @@ the local engines, so those files run unchanged. The port's drivers:
   without a ``redisHost``: :class:`~tasksrunner_torch.pubsub.sqlite.SqliteBroker`;
 * ``secretstores.local.env`` / ``secretstores.azure.keyvault``,
   ``secretstores.local.file`` and ``secretstores.local.static``: the
-  stores of :mod:`tasksrunner_torch.secrets.local`.
+  stores of :mod:`tasksrunner_torch.secrets.local`;
+* ``bindings.localqueue`` / ``bindings.azure.storagequeues``:
+  :class:`~tasksrunner_torch.bindings.localqueue.LocalQueueBinding`;
+  ``bindings.cron``: :class:`~tasksrunner_torch.bindings.cron.CronBinding`;
+  ``bindings.localblob`` / ``bindings.azure.blobstorage``:
+  :class:`~tasksrunner_torch.bindings.blobstore.LocalBlobStoreBinding`;
+  ``bindings.smtp`` / ``bindings.twilio.sendgrid``:
+  :class:`~tasksrunner_torch.bindings.email.EmailOutboxBinding`.
 
 A :class:`ComponentRegistry` holds the specs in one app's scope. It
 builds the secret stores among them at once, since every other
@@ -40,7 +47,9 @@ _DRIVERS: dict[str, DriverFactory] = {}
 #: the modules whose import registers the port's drivers
 _DRIVER_MODULES = ("tasksrunner_torch.state.memory", "tasksrunner_torch.state.sqlite",
                    "tasksrunner_torch.pubsub.memory", "tasksrunner_torch.pubsub.sqlite",
-                   "tasksrunner_torch.secrets.drivers")
+                   "tasksrunner_torch.secrets.drivers", "tasksrunner_torch.bindings.localqueue",
+                   "tasksrunner_torch.bindings.cron", "tasksrunner_torch.bindings.blobstore",
+                   "tasksrunner_torch.bindings.email")
 
 
 def driver(type_name: str, *aliases: str) -> Callable[[DriverFactory], DriverFactory]:

@@ -24,11 +24,10 @@ env, secrets, grants, liveness probe and scale block::
 the port cannot run: an app module that is not a port app (its imports
 are read with :mod:`ast`, its module never run, so that validating a
 manifest of the JAX samples loads nothing of the JAX package), a
-component type without a port driver (the ``bindings.*`` types wait for
-ROADMAP A17) and ``mesh_tls: true`` (ROADMAP A22). A Resiliency document
-is no component: :func:`resolve_components` wants exactly one component
-a file, as in the JAX package, so a deployed caller's policies live in
-its own resources directory.
+component type without a port driver and ``mesh_tls: true`` (ROADMAP
+A22). A Resiliency document is no component: :func:`resolve_components`
+wants exactly one component a file, as in the JAX package, so a deployed
+caller's policies live in its own resources directory.
 """
 
 from __future__ import annotations

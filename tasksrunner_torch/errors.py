@@ -1,5 +1,5 @@
 """The errors of the port: the part of ``tasksrunner/errors.py`` the
-scorer, its runtime and its sidecar raise.
+scorer, its runtime, its sidecar and its bindings raise.
 
 Every error below :class:`TasksRunnerError` carries the HTTP status the
 sidecar answers it with (:attr:`TasksRunnerError.http_status`), as in the
@@ -65,6 +65,19 @@ class EtagMismatch(StateError):
     """Optimistic-concurrency conflict on a state write."""
 
     http_status = 409
+
+
+class QueryError(StateError):
+    """A malformed state query (:mod:`tasksrunner_torch.state.query`), or
+    a store without query support."""
+
+    http_status = 400
+
+
+class BindingError(TasksRunnerError):
+    """A binding component or one of its operations failed."""
+
+    http_status = 500
 
 
 class SaturatedError(Exception):

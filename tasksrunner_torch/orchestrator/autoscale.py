@@ -12,6 +12,9 @@ clock). The rules, as in the JAX package:
                      group has not settled in the component's sqlite
                      broker file, read out of band as KEDA reads the
                      broker (:func:`read_backlog`)
+``queue-backlog``    +1 replica per ``messageCount`` messages neither
+                     acked nor dead-lettered in the queue binding's file
+                     (KEDA's ``azure-queue`` scaler; :func:`read_backlog`)
 ``http-concurrency`` +1 replica per ``concurrentRequests`` in flight,
                      summed over each replica's ``/tasksrunner/stats``
 ``cpu``              replicas so that each stays under ``utilization``
@@ -26,8 +29,7 @@ clock). The rules, as in the JAX package:
                      ``event_loop_lag_seconds`` is over ``maxLagSeconds``
 ==================  ====================================================
 
-``queue-backlog`` needs the local queue binding (ROADMAP A17) and is
-refused. A rule that raises is logged and skipped; only when every rule
+A rule that raises is logged and skipped; only when every rule
 fails does the count hold. Each verdict is set as the gauge
 ``autoscale_desired_replicas{app}``. There is no scale-to-zero:
 ``min_replicas`` is at least 1.
@@ -49,24 +51,25 @@ from tasksrunner_torch.client import TOKEN_HEADER
 from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import ComponentError
 from tasksrunner_torch.metrics import estimate_percentile, merge_histogram_snapshots, metrics
-from tasksrunner_torch.orchestrator.config import (
-    NOT_PORTED_RULES, RULE_TYPES, AppSpec, ScaleRule, not_ported,
-)
+from tasksrunner_torch.orchestrator.config import RULE_TYPES, AppSpec, ScaleRule
 
 logger = logging.getLogger(__name__)
 
 
 def read_backlog(rule: ScaleRule, *, app_id: str, components: list[ComponentSpec],
                  base_dir: pathlib.Path) -> int:
-    """The backlog a ``pubsub-backlog`` rule watches: messages of its
-    ``topic`` the ``group`` (the app id by default) has not settled, read
-    from the broker file on a connection of its own."""
+    """The backlog a backlog rule watches, read from the component's file
+    on a connection of its own (a relative path resolves against
+    ``base_dir``): for ``pubsub-backlog`` the messages of its ``topic``
+    the ``group`` (the app id by default) has not settled, for
+    ``queue-backlog`` the queue's messages neither acked nor
+    dead-lettered."""
     meta = rule.metadata
     comp_name = meta.get("component")
     spec = next((s for s in components if s.name == comp_name), None)
+    if rule.type in ("pubsub-backlog", "queue-backlog") and spec is None:
+        raise ComponentError(f"scale rule references unknown component {comp_name!r}")
     if rule.type == "pubsub-backlog":
-        if spec is None:
-            raise ComponentError(f"scale rule references unknown component {comp_name!r}")
         from tasksrunner_torch.pubsub.sqlite import open_for_inspection
         # nothing published yet is a backlog of 0
         broker = open_for_inspection(spec, base_dir, must_exist=False)
@@ -74,8 +77,13 @@ def read_backlog(rule: ScaleRule, *, app_id: str, components: list[ComponentSpec
             return broker.backlog(meta.get("topic", ""), meta.get("group", app_id))
         finally:
             broker.close_sync()
-    if rule.type in NOT_PORTED_RULES:
-        raise not_ported(f"the {rule.type} scale rule", NOT_PORTED_RULES[rule.type])
+    if rule.type == "queue-backlog":
+        from tasksrunner_torch.bindings.localqueue import open_queue_for_inspection
+        queue = open_queue_for_inspection(spec, base_dir)
+        try:
+            return queue.backlog()
+        finally:
+            queue.close()
     raise ComponentError(f"unknown scale rule type {rule.type!r}")
 
 

@@ -24,9 +24,8 @@ block::
 
 The fields, their defaults and the errors are the JAX package's, so one
 file reads the same in both. What the port has no counterpart for is
-refused when the file is read, never ignored: a ``queue-backlog`` rule
-(its signal, the local queue binding, waits for ROADMAP A17) and
-``mesh_tls: true`` (ROADMAP A22).
+refused when the file is read, never ignored: ``mesh_tls: true``
+(ROADMAP A22).
 """
 
 from __future__ import annotations
@@ -41,8 +40,6 @@ from tasksrunner_torch.errors import ComponentError
 #: refused when the file is read
 RULE_TYPES = ("pubsub-backlog", "queue-backlog", "http-concurrency",
               "cpu", "memory", "target-p99", "loop-lag")
-#: rule types whose signal the port does not have yet → the ROADMAP item
-NOT_PORTED_RULES = {"queue-backlog": "A17"}
 
 
 def not_ported(what: str, item: str) -> ComponentError:
@@ -180,9 +177,6 @@ def load_run_config(path: str | pathlib.Path) -> RunConfig:
                 raise ComponentError(
                     f"app {raw['app_id']}: unknown scale rule type "
                     f"{rule.type!r} (known: {', '.join(RULE_TYPES)})")
-            if rule.type in NOT_PORTED_RULES:
-                raise not_ported(f"app {raw['app_id']}: the {rule.type} scale rule",
-                                 NOT_PORTED_RULES[rule.type])
         health = parse_health(raw.get("health", {}))
         grants = raw.get("grants")
         if grants is not None:

@@ -1,5 +1,5 @@
 """The runtime behind a sidecar: the port of ``tasksrunner/runtime.py``
-without actors, workflows, bindings, chaos and the mTLS mesh.
+without actors, workflows, chaos and the mTLS mesh.
 
 One :class:`Runtime` per app identity holds the app's scoped
 :class:`~tasksrunner_torch.component.registry.ComponentRegistry` and a
@@ -12,7 +12,9 @@ app beside it in one process calls it directly
 
 * **State**: every key is stored under the component's ``keyPrefix``
   (``{app-id}||key`` by default); save, get, bulk get, delete and
-  transactions, with etags.
+  transactions, with etags; queries (:mod:`tasksrunner_torch.state.query`)
+  over the app's own keys, answered with the prefix stripped, after a
+  ``read`` grant check.
 * **Publish**: the data wrapped in a CloudEvent (unless raw), and a
   ``producer`` span ``publish {pubsub}/{topic}`` whose context rides the
   message as its ``traceparent`` (and ``baggage``).
@@ -26,10 +28,20 @@ app beside it in one process calls it directly
   are returned as they are.
 * **Secrets**: ``get_secret`` and ``bulk_secrets`` read a secret-store
   component after a ``read`` grant check.
+* **Bindings** (:mod:`tasksrunner_torch.bindings`): an output binding's
+  operation after an ``invoke`` grant check, under the component's
+  outbound policy. Each input binding in the app's scope starts after the
+  subscribe handshake and delivers every event as a ``POST`` to its
+  route in a new trace, with ``content-type: application/json`` and the
+  event's metadata (``messageId``, ``attempt``) as headers, under the
+  component's inbound policy: a 2xx acks, anything else nacks (a 503's
+  ``Retry-After`` too: unlike a subscription's, the binding's source
+  retries on its own schedule, as in the JAX runtime). They stop before
+  the components close.
 * **Resiliency** (:mod:`tasksrunner_torch.resiliency`): a component's
   outbound policy wraps each state operation (each item of a save on
-  its own) and each publish; its inbound policy wraps each delivery to
-  the app.
+  its own), each publish and each output binding's operation; its
+  inbound policy wraps each delivery to the app, a binding's included.
 * **Start**: wait until the app answers ``GET /tasksrunner/healthz``,
   read ``GET /tasksrunner/subscribe`` and subscribe one consumer per
   entry (group: the app id), after a ``subscribe`` grant check where
@@ -39,8 +51,12 @@ app beside it in one process calls it directly
   nacks (:func:`~tasksrunner_torch.pubsub.base.delivery_outcome`).
 
 Metrics, in the process-wide registry: ``state_op_latency_seconds``,
-``publish_latency_seconds``, ``invoke_latency_seconds``,
-``pubsub_delivery{route,status}`` and ``delivery_latency_seconds{route}``.
+``state_query{store}``, ``publish_latency_seconds``, ``invoke_latency_seconds``,
+``pubsub_delivery{route,status}``, ``delivery_latency_seconds{route}``,
+``binding_invoke{binding,operation}``,
+``binding_latency_seconds{binding,operation}``,
+``binding_delivery{binding,status}`` and
+``binding_delivery_latency_seconds{binding}``.
 """
 
 from __future__ import annotations
@@ -53,9 +69,14 @@ import time
 from typing import Any, Awaitable, Callable
 
 from tasksrunner_torch import cloudevents, spans
+from tasksrunner_torch.bindings.base import (
+    BindingEvent, BindingResponse, InputBinding, OutputBinding,
+)
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
 from tasksrunner_torch.component.registry import ComponentRegistry
-from tasksrunner_torch.errors import AppNotFound, ComponentNotFound, InvocationError, StateError
+from tasksrunner_torch.errors import (
+    AppNotFound, BindingError, ComponentNotFound, InvocationError, StateError,
+)
 from tasksrunner_torch.invoke.resolver import NameResolver
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.pubsub.base import Message, Nack, delivery_outcome
@@ -128,6 +149,8 @@ class Runtime:
         self.grants = grants
         #: (topic, group, cancel) of each subscription
         self._subscriptions: list[tuple[str, str, Callable[[], Awaitable[None]]]] = []
+        #: the input bindings this runtime started
+        self._input_bindings: list[InputBinding] = []
         self._started = False
 
     async def _guarded(self, component_name: str, fn: Callable[[], Awaitable]) -> Any:
@@ -197,6 +220,17 @@ class Runtime:
             out.append(entry)
         return out
 
+    async def query_state(self, store_name: str, query: dict) -> dict:
+        """``{"results": [{key, data, etag}], "token"}`` over the app's keys."""
+        self._authorize(store_name, "read")
+        store, prefixer = self._state_store(store_name)
+        resp = await self._guarded(store_name,
+                                   lambda: store.query(query, key_prefix=prefixer.prefix))
+        metrics.inc("state_query", store=store_name)
+        return {"results": [{"key": prefixer.strip(i.key), "data": i.value, "etag": i.etag}
+                            for i in resp.items],
+                "token": resp.token}
+
     async def transact_state(self, store_name: str, operations: list[dict]) -> None:
         self._authorize(store_name, "write")
         store, prefixer = self._state_store(store_name)
@@ -255,6 +289,21 @@ class Runtime:
                           attrs={"target": f"{pubsub_name}/{topic}"}, trace_id=child.trace_id,
                           span_id=child.span_id, parent_id=ctx.span_id)
         return msg_id
+
+    # -- bindings --------------------------------------------------------
+
+    async def invoke_output_binding(self, name: str, operation: str, data: Any,
+                                    metadata: dict[str, str] | None = None) -> BindingResponse:
+        self._authorize(name, "invoke")
+        binding = self.registry.get(name, block="bindings")
+        if not isinstance(binding, OutputBinding):
+            raise BindingError(f"component {name!r} is not an output binding")
+        metrics.inc("binding_invoke", binding=name, operation=operation)
+        started = time.perf_counter()
+        result = await self._guarded(name, lambda: binding.invoke(operation, data, metadata))
+        metrics.observe("binding_latency_seconds", time.perf_counter() - started,
+                        binding=name, operation=operation)
+        return result
 
     # -- service invocation ----------------------------------------------
 
@@ -336,8 +385,8 @@ class Runtime:
             await asyncio.sleep(0.1)
 
     async def start(self) -> None:
-        """The subscribe handshake: one consumer per subscription the
-        app declares."""
+        """The subscribe handshake (one consumer per subscription the app
+        declares), then the input bindings in the app's scope."""
         if self._started or self.app_channel is None:
             self._started = True
             return
@@ -360,6 +409,14 @@ class Runtime:
                                             self._make_subscription_handler(pubsub_name, route))
             self._subscriptions.append((topic, group, cancel))
             logger.info("subscribed %s to %s/%s -> %s", self.app_id, pubsub_name, topic, route)
+        for name in self.registry.names(block="bindings"):
+            binding = self.registry.get(name)
+            # a shared instance another runtime started is not started twice
+            if isinstance(binding, InputBinding) and not binding.running:
+                await binding.start(self._make_binding_sink(binding))
+                binding.running = True
+                self._input_bindings.append(binding)
+                logger.info("input binding %s -> %s", name, binding.route)
 
     def _make_subscription_handler(self, pubsub_name: str,
                                    route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
@@ -402,6 +459,37 @@ class Runtime:
                 return delivery_outcome(status, reply_headers)
         return deliver
 
+    def _make_binding_sink(self, binding: InputBinding) -> Callable[[BindingEvent],
+                                                                    Awaitable[bool]]:
+        policy = (self.resiliency.for_component(binding.name, "inbound")
+                  if self.resiliency is not None else None)
+
+        async def sink(event: BindingEvent) -> bool:
+            ctx = ensure_trace(None)  # each event opens a trace of its own
+            with trace_scope(ctx):
+                body = b"" if event.data is None else json.dumps(event.data).encode()
+                headers = {"content-type": "application/json", TRACEPARENT_HEADER: ctx.header,
+                           **event.metadata}
+
+                async def deliver_once() -> Reply:
+                    return await self.app_channel.request("POST", binding.route,
+                                                          headers=headers, body=body)
+
+                started = time.perf_counter()
+                try:
+                    if policy is not None:
+                        status, _, _ = await policy.execute(deliver_once, retriable=(OSError,))
+                    else:
+                        status, _, _ = await deliver_once()
+                except Exception:  # noqa: BLE001 - an unreachable app nacks
+                    logger.exception("binding delivery to %s failed", binding.route)
+                    return False
+                metrics.inc("binding_delivery", binding=binding.name, status=str(status))
+                metrics.observe("binding_delivery_latency_seconds",
+                                time.perf_counter() - started, binding=binding.name)
+                return 200 <= status < 300
+        return sink
+
     # -- metadata / teardown ---------------------------------------------
 
     def metadata(self) -> dict:
@@ -420,5 +508,9 @@ class Runtime:
         for _, _, cancel in self._subscriptions:
             await cancel()
         self._subscriptions.clear()
+        for binding in self._input_bindings:
+            await binding.stop()
+            binding.running = False
+        self._input_bindings.clear()
         await self.registry.close()
         self._started = False

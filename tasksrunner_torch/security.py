@@ -5,7 +5,11 @@ Grants map a component name to the operations an app may run on it
 (``read``, ``write``, ``publish``, ``subscribe``, ``invoke``), each for
 every topic or for a list of topics: ``{"statestore": ["read", "write"],
 "taskspubsub": [{"subscribe": ["tasksavedtopic"]}]}``. The runtime checks
-them when they are given; without grants an app is unrestricted.
+them when they are given; without grants an app is unrestricted. By
+building block: state ``read`` (get, bulk get, query) and ``write``
+(save, delete, transaction); pub/sub ``publish`` and ``subscribe``,
+optionally per topic; bindings ``invoke`` (an output binding's
+operations); secret stores ``read``.
 
 With ``per_app_tokens`` the orchestrator gives each app a token of its
 own and writes the sha256 digests of all of them to the file that

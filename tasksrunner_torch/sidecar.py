@@ -9,6 +9,14 @@
   /v1.0/state/{store}/{key}`` (``If-Match`` as the etag, 204),
   ``POST /v1.0/state/{store}/bulk`` (``{"keys": [...]}``) and
   ``POST /v1.0/state/{store}/transaction`` (``{"operations": [...]}``);
+* ``POST /v1.0/state/{store}/query`` (the dialect of
+  :mod:`tasksrunner_torch.state.query`), answering ``{"results": [{key,
+  data, etag}], "token"}``, after the app's ``read`` grant; a malformed
+  query is a 400;
+* ``POST /v1.0/bindings/{name}`` (``{"operation": "create", "data",
+  "metadata"}``), answering ``{"data", "metadata"}`` (bytes as UTF-8
+  text), after the app's ``invoke`` grant on the binding; a body that
+  is not a JSON object is a 400 (the JAX route answers 500);
 * ``POST /v1.0/publish/{pubsub}/{topic}`` (``?metadata.rawPayload=true``
   publishes the body unwrapped), answering ``{"messageId"}``;
 * ``GET /v1.0/secrets/{store}/{key}`` (``{key: value}``) and ``GET
@@ -173,6 +181,22 @@ class Sidecar:
             await runtime.transact_state(req.path_params["store"], body.get("operations", []))
             return Response(204)
 
+        async def query_state(req: Request) -> Response:
+            return _json_reply(await runtime.query_state(req.path_params["store"],
+                                                         json.loads(req.body)))
+
+        async def invoke_binding(req: Request) -> Response:
+            body = json.loads(req.body)
+            if not isinstance(body, dict):
+                raise ValidationError('binding body must be {"operation", "data", "metadata"}')
+            resp = await runtime.invoke_output_binding(
+                req.path_params["name"], body.get("operation", "create"), body.get("data"),
+                body.get("metadata") or {})
+            data = resp.data
+            if isinstance(data, (bytes, bytearray)):
+                data = data.decode("utf-8", "replace")
+            return _json_reply({"data": data, "metadata": resp.metadata})
+
         async def publish(req: Request) -> Response:
             data = json.loads(req.body) if req.body else None
             raw = parse_qs(req.query).get("metadata.rawPayload") == ["true"]
@@ -201,7 +225,9 @@ class Sidecar:
         add("DELETE", "/v1.0/state/{store}/{key}", delete_state)
         add("POST", "/v1.0/state/{store}/bulk", bulk_get_state)
         add("POST", "/v1.0/state/{store}/transaction", transact_state)
+        add("POST", "/v1.0/state/{store}/query", query_state)
         add("POST", "/v1.0/publish/{pubsub}/{topic}", publish)
+        add("POST", "/v1.0/bindings/{name}", invoke_binding)
         add("GET", "/v1.0/secrets/{store}/bulk", bulk_secrets)  # before {key}
         add("GET", "/v1.0/secrets/{store}/{key}", get_secret)
         # a peer app's own token passes here and nowhere else

@@ -1,5 +1,4 @@
-"""The state store's contract: the port of ``tasksrunner/state/base.py``
-without the query dialect.
+"""The state store's contract: the port of ``tasksrunner/state/base.py``.
 
 Values are JSON documents. Every write gives a fresh, opaque etag; a
 write may name the etag it expects (optimistic concurrency,
@@ -11,12 +10,17 @@ differs. A store's methods:
 * ``set(key, value, *, etag=None)`` → the new etag;
 * ``delete(key, *, etag=None)`` → whether the key existed;
 * ``transact(ops)``: :class:`TransactionOp` s applied atomically, every
-  etag checked against the state before the transaction.
+  etag checked against the state before the transaction;
+* ``query(query, *, key_prefix="")`` → :class:`QueryResponse`: the
+  filter, sort and page dialect of :mod:`tasksrunner_torch.state.query`
+  over the keys that start with ``key_prefix``; a malformed query raises
+  :class:`~tasksrunner_torch.errors.QueryError`. Every store of the port
+  takes the dialect (the JAX package's Redis store does not).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Literal
 
 
@@ -37,3 +41,10 @@ class TransactionOp:
     key: str
     value: Any = None
     etag: str | None = None
+
+
+@dataclass
+class QueryResponse:
+    items: list[StateItem] = field(default_factory=list)
+    #: the next page's token; None once the results are exhausted
+    token: str | None = None

@@ -35,6 +35,12 @@ class KeyPrefixer:
     def apply(self, key: str) -> str:
         return self.prefix + key
 
+    def strip(self, storage_key: str) -> str:
+        """The app's key of a storage key (a query's results)."""
+        if self.prefix and storage_key.startswith(self.prefix):
+            return storage_key[len(self.prefix):]
+        return storage_key
+
 
 def prefixer_for(metadata: dict, *, app_id: str | None, component_name: str) -> KeyPrefixer:
     """The component's ``keyPrefix`` strategy; ``appid`` when it is unset

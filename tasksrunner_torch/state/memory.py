@@ -1,10 +1,11 @@
-"""An in-memory state store: the port of ``tasksrunner/state/memory.py``
-without the query dialect, under the contract of
-:mod:`tasksrunner_torch.state.base`.
+"""An in-memory state store: the port of ``tasksrunner/state/memory.py``,
+under the contract of :mod:`tasksrunner_torch.state.base`.
 
 Values are kept as their JSON text, so what a caller reads back is a
 copy of what was saved, as it would be from any store behind a sidecar.
-Etags count up from 1. Nothing outlives the process.
+Etags count up from 1. A query runs
+:func:`~tasksrunner_torch.state.query.run_query` over the keys in order.
+Nothing outlives the process.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Any
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import EtagMismatch
-from tasksrunner_torch.state.base import StateItem, TransactionOp
+from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
+from tasksrunner_torch.state.query import run_query
 
 
 class InMemoryStateStore:
@@ -60,6 +62,13 @@ class InMemoryStateStore:
                 self._items.pop(op.key, None)
             else:
                 self._set(op.key, text)
+
+    async def query(self, query: dict, *, key_prefix: str = "") -> QueryResponse:
+        candidates = [StateItem(key, json.loads(text), etag)
+                      for key, (text, etag) in sorted(self._items.items())
+                      if key.startswith(key_prefix)]
+        items, token = run_query(candidates, query)
+        return QueryResponse(items=items, token=token)
 
     def keys(self) -> list[str]:
         return list(self._items)

@@ -1,6 +1,6 @@
 """The durable sqlite state store: the port of ``tasksrunner/state/sqlite.py``
-(``SqliteStateStore``) without the query dialect, shards, replication
-and staged transactions.
+(``SqliteStateStore``) without shards, replication and staged
+transactions.
 
 The on-disk schema (``state(key, value, etag)`` and the store-wide etag
 sequence ``etag_seq``) and the value encoding (compact JSON, NaN
@@ -23,6 +23,12 @@ back in the other.
 * **Read cache.** ``readCacheSize`` > 0 keeps a write-through LRU of
   (key → document, etag); safe only where this process is the file's
   one writer.
+* **Queries in the engine.** The dialect of
+  :mod:`tasksrunner_torch.state.query` compiles to SQL over
+  ``json_extract`` (:func:`compile_filter`, :func:`compile_sort`), the
+  key prefix to an escaped ``LIKE``, a page to ``LIMIT`` / ``OFFSET``
+  with the tokens of ``query.paginate``, rows that tie in key order;
+  the answer is the in-memory store's. NaN is refused when written, so it never reaches a query.
 
 The store sets the gauge ``state_write_queue_depth`` (an admission
 signal) once per batch and observes ``state_queue_wait_seconds`` and
@@ -46,9 +52,10 @@ from tasksrunner_torch import spans
 from tasksrunner_torch._sqlite import begin_immediate, checkpoint_loop, resolve_futures
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec, metadata_bool, metadata_int
-from tasksrunner_torch.errors import ComponentError, EtagMismatch, StateError
+from tasksrunner_torch.errors import ComponentError, EtagMismatch, QueryError, StateError
 from tasksrunner_torch.metrics import metrics
-from tasksrunner_torch.state.base import StateItem, TransactionOp
+from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
+from tasksrunner_torch.state.query import page_window, sort_clauses, validate_filter
 from tasksrunner_torch.tracing import current_trace, hex8
 
 _SCHEMA = """
@@ -66,6 +73,56 @@ INSERT OR IGNORE INTO etag_seq(id, n) VALUES (1, 0);
 
 _SET_SQL = ("INSERT INTO state(key, value, etag) VALUES(?, ?, ?) "
             "ON CONFLICT(key) DO UPDATE SET value=excluded.value, etag=excluded.etag")
+
+
+def _like_escape(prefix: str) -> str:
+    return prefix.replace("\\", "\\\\").replace("%", "\\%").replace("_", "\\_")
+
+
+def _param(value: Any) -> Any:
+    """A JSON scalar as ``json_extract`` gives it back (true is 1)."""
+    return int(value) if isinstance(value, bool) else value
+
+
+def compile_filter(filt: Any) -> tuple[str, list[Any]]:
+    """A validated filter as a WHERE fragment and its parameters, with
+    the semantics of :func:`tasksrunner_torch.state.query.matches`."""
+    if filt in (None, {}):
+        return "1", []
+    op, operand = next(iter(filt.items()))
+    if op in ("AND", "OR"):
+        parts, params = [], []
+        for sub in operand:
+            frag, p = compile_filter(sub)
+            parts.append(f"({frag})")
+            params.extend(p)
+        return f" {op} ".join(parts), params
+    path, expected = next(iter(operand.items()))
+    col, jpath = "json_extract(value, ?)", "$." + path
+    if op == "EQ":
+        return f"{col} IS ?", [jpath, _param(expected)]
+    if op == "NEQ":
+        return f"{col} IS NOT ?", [jpath, _param(expected)]
+    if op == "IN":
+        if not expected:
+            return "0", []
+        frag = f"{col} IN ({', '.join('?' for _ in expected)})"
+        params: list[Any] = [jpath, *(_param(v) for v in expected)]
+        if any(v is None for v in expected):
+            # IN never matches NULL: a missing field is null, as in matches
+            frag = f"({frag} OR json_extract(value, ?) IS NULL)"
+            params.append(jpath)
+        return frag, params
+    raise QueryError(f"unknown filter operator {op!r}")
+
+
+def compile_sort(sort_spec: list[dict] | None) -> tuple[str, list[Any]]:
+    """The sort clauses, then the key: rows that tie come in key order,
+    as the in-memory store's stable sort over keys in order gives them,
+    so a page walk never skips or repeats a row."""
+    clauses = sort_clauses(sort_spec)
+    return ("ORDER BY " + "".join(f"json_extract(value, ?) {order}, " for _, order in clauses)
+            + "key", ["$." + path for path, _ in clauses])
 
 
 def _encode(key: str, value: Any) -> str:
@@ -395,6 +452,40 @@ class SqliteStateStore:
             (op.operation, op.key,
              _encode(op.key, op.value) if op.operation == "upsert" else None, op.etag)
             for op in ops]))
+
+    async def query(self, query: dict, *, key_prefix: str = "") -> QueryResponse:
+        if not isinstance(query, dict):
+            raise QueryError("query must be a JSON object")
+        filt = query.get("filter")
+        validate_filter(filt)
+        where, params = compile_filter(filt)
+        order, order_params = compile_sort(query.get("sort"))
+        sql = f"SELECT key, value, etag FROM state WHERE ({where})"
+        if key_prefix:
+            sql += r" AND key LIKE ? ESCAPE '\'"
+            params.append(_like_escape(key_prefix) + "%")
+        sql += f" {order}"
+        params.extend(order_params)
+        # paged in the engine, with query.paginate's offset tokens
+        start, limit = page_window(query.get("page"))
+        if limit is not None:
+            sql += " LIMIT ? OFFSET ?"
+            params.extend([limit + 1, start])  # one more row: is there a next page?
+        elif start:
+            sql += " LIMIT -1 OFFSET ?"
+            params.append(start)
+        rows = await self._run_read(self._query_sync, sql, params)
+        token = None
+        if limit is not None and len(rows) > limit:
+            rows, token = rows[:limit], str(start + limit)
+        return QueryResponse(items=[StateItem(key=k, value=json.loads(v), etag=e)
+                                    for k, v, e in rows], token=token)
+
+    def _query_sync(self, sql: str, params: list[Any]) -> list[tuple]:
+        try:
+            return self._rconn.execute(sql, params).fetchall()
+        except sqlite3.Error as exc:
+            raise QueryError(f"query failed: {exc}") from exc
 
     async def keys(self, *, prefix: str = "") -> list[str]:
         def read() -> list[str]:

@@ -212,20 +212,21 @@ def test_registry_scoping_block_and_unknown_types(tmp_path):
                               "spec": {"type": t}, "scopes": s}, default_name=n)
              for n, t, s in (("scores", "state.in-memory", ["priority-scorer"]),
                              ("bus", "pubsub.in-memory", []),
-                             ("odd", "bindings.cron", []))]
+                             ("odd", "bindings.kafka", []))]
     reg = ComponentRegistry(specs, app_id="priority-scorer")
     assert reg.names() == ["bus", "odd", "scores"] and reg.names("state") == ["scores"]
     assert reg.get("scores", block="state") is reg.get("scores")
     with pytest.raises(ComponentNotFound, match="not a pubsub component"):
         reg.get("scores", block="pubsub")
-    with pytest.raises(DriverNotFound, match="no driver for component type 'bindings.cron'"):
+    with pytest.raises(DriverNotFound, match="no driver for component type 'bindings.kafka'"):
         reg.get("odd")
     other = ComponentRegistry(specs, app_id="some-api")
     with pytest.raises(ComponentNotFound, match="not registered for app 'some-api'"):
         other.get("scores")
     assert {"state.sqlite", "state.azure.cosmosdb", "state.postgresql", "state.in-memory",
             "pubsub.sqlite", "pubsub.azure.servicebus", "pubsub.redis",
-            "pubsub.in-memory"} <= set(registered_types())
+            "pubsub.in-memory", "bindings.cron", "bindings.azure.storagequeues",
+            "bindings.azure.blobstorage", "bindings.twilio.sendgrid"} <= set(registered_types())
 
 
 def test_a_redis_host_is_refused_and_none_falls_back_to_sqlite(tmp_path):

@@ -546,6 +546,77 @@ async def test_a_deployed_replica_runs_b1_on_the_card(card, tmp_path, monkeypatc
         1 + stats["batches"].get(str(b), 0) for b in stats["buckets"])
 
 
+async def test_the_scorer_behind_a_queue_binding_stores_plain_forward_scores(card, tmp_path,
+                                                                           monkeypatch):
+    """make_app() (cuda:0) in an AppHost whose components are a sqlite
+    store and the sample's storage-queue binding routed to
+    ``/on-task-saved``: 16 messages an outside producer sends are each
+    scored on the card and stored once, each score within 2e-2 of the
+    forward with the einsum core on the same params, with B1 launched once
+    per layer for each warmed bucket and each batch."""
+    import asyncio
+    import json
+    import os
+    import sqlite3
+
+    import numpy as np
+
+    from tasksrunner_torch import service
+    from tasksrunner_torch.bindings import SqliteQueue
+    from tasksrunner_torch.hosting import AppHost
+
+    monkeypatch.setenv("TASKSRUNNER_ML_BUCKETS", "1,8")
+    comps = tmp_path / "components"
+    comps.mkdir()
+    (comps / "scores.yaml").write_text(
+        "componentType: state.sqlite\nmetadata:\n- name: databasePath\n"
+        f"  value: {tmp_path / 'scores.db'}\n")
+    (comps / "queue.yaml").write_text(
+        "componentType: bindings.azure.storagequeues\nmetadata:\n- name: queueName\n"
+        f"  value: external-tasks-queue\n- name: queuePath\n  value: {tmp_path / 'q'}\n"
+        "- name: route\n  value: /on-task-saved\n- name: maxRetries\n  value: \"1000\"\n"
+        "- name: retryDelaySeconds\n  value: \"0.5\"\n")
+    tasks = [{"taskId": f"gpu-q{i}", "taskName": f"rotate the keys {i}",
+              "taskAssignedTo": f"ops{i % 3}"} for i in range(16)]
+    app = service.make_app()
+    host = AppHost(app, components_path=str(comps), registry_file=str(tmp_path / "apps.json"))
+    flash.launches = 0
+    await asyncio.wait_for(host.start(), 60)
+    try:
+        await asyncio.wait_for(app.wait_ready(), 600)
+        queue = SqliteQueue(tmp_path / "q" / "external-tasks-queue.db")
+        for task in tasks:
+            queue.send(task)
+        while queue.backlog():
+            await asyncio.sleep(0.02)
+        assert queue.dead_letter_detail() == []
+        queue.close()
+        stats = (await app.handle("GET", "/ml/stats")).body
+    finally:
+        await asyncio.wait_for(host.stop(), 60)
+    launched = flash.launches
+    with sqlite3.connect(tmp_path / "scores.db") as conn:
+        stored = {k.split("||", 1)[1]: json.loads(v)
+                  for k, v in conn.execute("SELECT key, value FROM state")}
+    assert sorted(stored) == sorted(t["taskId"] for t in tasks)
+    cfg = ModelConfig(n_classes=len(service.PRIORITY_LABELS))
+    tokens = torch.as_tensor(np.stack([service.task_tokens(t, cfg) for t in tasks]),
+                             device=card)
+    os.environ["TASKSRUNNER_FLASH"] = "0"
+    try:
+        with torch.inference_mode():
+            probs = torch.softmax(forward(init_params(cfg, 0, card), tokens, cfg=cfg), -1)
+    finally:
+        os.environ.pop("TASKSRUNNER_FLASH")
+    for task, row in zip(tasks, probs.cpu().numpy()):
+        got = stored[task["taskId"]]
+        label = service.PRIORITY_LABELS.index(got["priority"])
+        assert row[label] >= row.max() - 2e-2
+        assert abs(float(row[label]) - got["confidence"]) <= 2e-2
+    assert launched == cfg.n_layers * sum(1 + stats["batches"].get(str(b), 0)
+                                          for b in stats["buckets"])
+
+
 def _bf16_steps(got, want):
     """The largest |got − want| in bf16 steps, each element's step taken
     at its magnitude or at want's rms, whichever is larger: a sum that

@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
     # every module, the request path's observability, the sidecar, the
-    # orchestrator, resiliency, secrets and deploy among them
+    # orchestrator, resiliency, secrets, deploy, bindings and the query
+    # dialect among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
                  "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
@@ -48,7 +49,10 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                  "tasksrunner_torch.resiliency.policy", "tasksrunner_torch.resiliency.spec",
                  "tasksrunner_torch.secrets.base", "tasksrunner_torch.secrets.local",
                  "tasksrunner_torch.secrets.resolver", "tasksrunner_torch.secrets.drivers",
-                 "tasksrunner_torch.deploy.manifest", "tasksrunner_torch.deploy.plan"):
+                 "tasksrunner_torch.deploy.manifest", "tasksrunner_torch.deploy.plan",
+                 "tasksrunner_torch.bindings.base", "tasksrunner_torch.bindings.localqueue",
+                 "tasksrunner_torch.bindings.cron", "tasksrunner_torch.bindings.blobstore",
+                 "tasksrunner_torch.bindings.email", "tasksrunner_torch.state.query"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

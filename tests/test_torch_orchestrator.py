@@ -19,6 +19,7 @@ import time
 
 import pytest
 
+from tasksrunner.bindings.localqueue import SqliteQueue as JaxQueue
 from tasksrunner.component.spec import parse_component as jax_parse_component
 from tasksrunner.errors import ComponentError as JaxComponentError
 from tasksrunner.orchestrator import autoscale as jax_autoscale
@@ -190,8 +191,6 @@ def test_a_missing_run_file_is_a_component_error(tmp_path):
 
 
 @pytest.mark.parametrize("text, item", [
-    ("apps:\n  - app_id: a\n    module: m:f\n    scale:\n      rules:\n"
-     "        - type: queue-backlog\n          metadata: { component: q }\n", "A17"),
     ("mesh_tls: true\napps:\n  - app_id: a\n    module: m:f\n", "A22"),
 ])
 def test_what_the_port_lacks_is_refused_not_ignored(tmp_path, text, item):
@@ -212,9 +211,12 @@ def test_the_orchestrator_refuses_mesh_tls_reshard_and_queue_backlog(tmp_path, m
     with pytest.raises(ComponentError, match=r"not ported yet \(ROADMAP A20\)"):
         asyncio.run(port_run.Orchestrator(config).start())
     assert not (tmp_path / "control-plane.db").exists()  # refused before the lease
-    rule = port_config.ScaleRule("queue-backlog", {"component": "q"})
-    with pytest.raises(ComponentError, match=r"not ported yet \(ROADMAP A17\)"):
-        port_autoscale.read_backlog(rule, app_id="a", components=[], base_dir=tmp_path)
+    # a queue-backlog rule is read now, and refused as in JAX where its
+    # component is missing
+    for cfg, mod in PACKAGES.values():
+        with pytest.raises((ComponentError, JaxComponentError), match="unknown component 'q'"):
+            mod.read_backlog(cfg.ScaleRule("queue-backlog", {"component": "q"}), app_id="a",
+                             components=[], base_dir=tmp_path)
 
 
 def test_run_needs_a_card_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):
@@ -275,6 +277,51 @@ async def test_the_backlog_of_a_broker_file_the_jax_broker_wrote(tmp_path):
     with pytest.raises(ComponentError, match="unknown component 'nope'"):
         port_autoscale.read_backlog(port_config.ScaleRule("pubsub-backlog", {"component": "nope"}),
                                     app_id="a", components=[], base_dir=tmp_path)
+
+
+def _queue_specs(root) -> dict:
+    doc = {"componentType": "bindings.azure.storagequeues",
+           "metadata": [{"name": "queuePath", "value": str(root)},
+                        {"name": "queueName", "value": "external-tasks-queue"}]}
+    return {"jax": [jax_parse_component(doc, default_name="q")],
+            "port": [parse_component(doc, default_name="q")]}
+
+
+def _set_queue_backlog(path, n: int) -> None:
+    """Ack messages (or reopen acked ones) until ``n`` are waiting."""
+    with sqlite3.connect(path) as conn:
+        conn.execute("UPDATE queue SET done = 1")
+        conn.execute("UPDATE queue SET done = 0 WHERE rowid IN "
+                     "(SELECT rowid FROM queue ORDER BY rowid LIMIT ?)", (n,))
+
+
+def test_a_queue_backlog_rule_reads_the_queue_file_the_jax_queue_wrote(tmp_path):
+    path = tmp_path / "queues" / "external-tasks-queue.db"
+    queue = JaxQueue(path)
+    ids = [queue.send({"i": i}) for i in range(12)]
+    queue.ack(ids[0])
+    queue.dead_letter(ids[1])
+    queue.claim()  # a claimed message is still backlog
+    queue.close()
+    specs = _queue_specs(tmp_path / "queues")
+    got = {name: mod.read_backlog(cfg.ScaleRule("queue-backlog", {"component": "q"}),
+                                  app_id="a", components=specs[name], base_dir=tmp_path)
+           for name, (cfg, mod) in PACKAGES.items()}
+    assert got == {"jax": 10, "port": 10}
+    # nothing sent yet is a backlog of 0; a relative queuePath resolves
+    # against the run file's directory
+    rel = _queue_specs("rel/queues")
+    for name, (cfg, mod) in PACKAGES.items():
+        assert mod.read_backlog(cfg.ScaleRule("queue-backlog", {"component": "q"}), app_id="a",
+                                components=rel[name], base_dir=tmp_path) == 0
+    assert (tmp_path / "rel" / "queues" / "external-tasks-queue.db").is_file()
+    # a run file with the rule is read into the JAX run config
+    run = tmp_path / "run.yaml"
+    run.write_text("apps:\n  - app_id: a\n    module: m:f\n    scale:\n      rules:\n"
+                   "        - type: queue-backlog\n          metadata: { component: q, "
+                   "messageCount: \"5\" }\n")
+    want, have = jax_config.load_run_config(run), port_config.load_run_config(run)
+    assert dataclasses.asdict(have.apps[0].scale) == dataclasses.asdict(want.apps[0].scale)
 
 
 @pytest.mark.parametrize("doc, must_exist", [
@@ -360,6 +407,8 @@ SCRIPTS = {
                     ((40, 0, 30, 2), (20, 0, 9, 0)), ((40, 0, 30, 2), (20, 0, 9, 0)),
                     ((1, 0, 0, 0), (0, 0, 0, 0)), ((50, 0, 0, 0), (0, 0, 0, 0)),
                     ((50, 0, 0, 0), (0, 0, 0, 0))]),
+    "queue-backlog": ({"component": "q", "messageCount": "10"},
+                      [0, 25, 3, 28, 0, 1, 0, 0, 0]),
     "loop-lag": ({"maxLagSeconds": "0.5"},
                  [(0.0, 0.0), (0.9, 0.1), (0.2, 0.1), (0.1, 0.7), (0.0, 0.0), (0.3, 0.2),
                   (0.0, 0.0), (0.0, 0.0), (0.0, 0.0)]),
@@ -389,7 +438,12 @@ async def test_each_rule_scales_as_the_jax_controller_does(tmp_path, monkeypatch
     for i in range(30):
         await broker.publish(TOPIC, {"i": i})
     await broker.aclose()
-    specs = _broker_specs(path)
+    queue = JaxQueue(tmp_path / "queues" / "external-tasks-queue.db")
+    for i in range(30):
+        queue.send({"i": i})
+    queue.close()
+    specs = {name: _broker_specs(path)[name] + _queue_specs(tmp_path / "queues")[name]
+             for name in PACKAGES}
     replicas = Replicas()
     await replicas.start()
     calls = {"jax": [], "port": []}
@@ -401,6 +455,8 @@ async def test_each_rule_scales_as_the_jax_controller_does(tmp_path, monkeypatch
         for signal_value in script:
             if rule_type == "pubsub-backlog":
                 _set_backlog(path, signal_value)
+            elif rule_type == "queue-backlog":
+                _set_queue_backlog(tmp_path / "queues" / "external-tasks-queue.db", signal_value)
             elif rule_type == "http-concurrency":
                 for stats, n in zip(replicas.stats, signal_value):
                     stats["inflight"] = n

@@ -78,8 +78,11 @@ def _stored(path: Path) -> dict[str, dict]:
     if not path.exists():
         return {}
     with sqlite3.connect(path) as conn:
-        return {k.split("||", 1)[1]: json.loads(v)
-                for k, v in conn.execute("SELECT key, value FROM state")}
+        try:
+            rows = conn.execute("SELECT key, value FROM state").fetchall()
+        except sqlite3.OperationalError:  # the file is made before its table
+            return {}
+    return {k.split("||", 1)[1]: json.loads(v) for k, v in rows}
 
 
 def _until(predicate, seconds: float, what: str):
