@@ -133,6 +133,34 @@ exit, traceback) at the first phase that does not hold:
    process. Prints messages/s on one and three replicas,
    enqueue → stored, backlog → decision, spawn → ready, the retries, the
    query's ms a page and the card's memory a replica;
+8f. observability: ``python -m tasksrunner_torch run`` over a run file of
+   the scorer at exactly two replicas (``TASKSRUNNER_ADMISSION=1``, an
+   in-flight line of 4) and a caller app, every process recording spans
+   into a file of its own, one flight-recorder directory,
+   ``TASKSRUNNER_SLOW_THRESHOLD_SECONDS=0.02`` and an API token: 32
+   two-hop ``/score`` calls through the caller's sidecar, each in a known
+   trace, all 200; ``GET /admin/traces/{id}`` of each, from all three
+   sidecars: the caller's client span, the replica sidecar's hop to its
+   app, the app's ``POST /score`` and ``ml-request`` (one chain), and the
+   ``ml-batch`` of the batch trace it names. The caller's piece and the
+   replica's share the trace id but are not linked: no sidecar records a
+   span for the request it receives, so the replica's hop names a parent
+   that no file holds. So ``traces critical`` over all the span files is
+   the caller's span alone (1 hop over 4 spans); over the replicas' files
+   it is the hop, ``POST /score`` and ``ml-request``, and of a batch
+   trace ``ml-batch``; each replica's ``/metrics`` 401 without the token,
+   text 0.0.4 with it, one ``# TYPE`` a name, buckets nondecreasing to
+   ``+Inf`` = ``_count``, ``ml_batches_total`` over both equal to their
+   ``/ml/stats``; ``metrics scorer --percentiles`` merging both; 64
+   closed-loop callers on replica 0's sidecar, each shed with 429 +
+   Retry-After, and the ``admission-shed`` dump (its ``invoke`` entries the
+   phase's traces, ``ml_queue_depth`` and ``admission_saturation`` among
+   its gauges) beside a ``slow-exemplar`` one, listed and rendered by
+   ``flightrec``; a request that fails in the app (``/scores`` has no
+   store) logged with ``role=scorer`` and its trace, read by ``logs``;
+   SIGTERM, no ``unclean-shutdown`` dump, each clean stop's B1 launches
+   equal to its ``/ml/stats``. Prints the admin call's ms, the two-hop
+   calls', the chains, the dumps and the card's memory;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -171,7 +199,8 @@ exit, traceback) at the first phase that does not hold:
     every 429 with Retry-After, the flood's queue wait within its bound),
     with the launch counts set to 0 just before and read just after.
 
-Earlier lines are JSON records; the line before the last holds every
+Earlier lines are JSON records, the last of them (``clock``) each
+phase's seconds and the run's; the line before the last holds every
 kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -183,6 +212,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import signal
 import socket
 import sqlite3
@@ -1262,6 +1292,10 @@ def phase_runtime(smi: str) -> int:
              {"TASKSRUNNER_API_TOKEN": STATS_TOKEN,
               "TASKSRUNNER_ML_MAX_DELAY_MS": str(STATS_WINDOW_MS)})):
         os.environ.update(env)
+        # the scorer records into the process's registry, whose threshold
+        # was read when it was made
+        threshold = metrics.slow_threshold
+        metrics.slow_threshold = float(env.get("TASKSRUNNER_SLOW_THRESHOLD_SECONDS", threshold))
         try:
             reset_counts()
             started = time.monotonic()
@@ -1269,6 +1303,7 @@ def phase_runtime(smi: str) -> int:
             seconds = time.monotonic() - started
             launched = counts()
         finally:
+            metrics.slow_threshold = threshold
             for key in env:
                 os.environ.pop(key)
         expected = expected_serve_launches(result["stats"], cards)
@@ -1715,14 +1750,14 @@ class _Orchestrated:
         self.err = _Lines(self.proc.stderr, logs / "orchestrator.log")
         self.admin_url: str | None = None
 
-    def ready(self, index: int) -> list[tuple[float, dict]]:
+    def ready(self, index: int, app_id: str = APP_ID) -> list[tuple[float, dict]]:
         """Each incarnation of replica ``index``'s ready line: (time, fields)."""
         return [(t, dict(kv.split("=", 1) for kv in line.split(" ready ", 1)[1].split()))
-                for t, line in self.out.find(f"[{APP_ID}·{index}] ready ")]
+                for t, line in self.out.find(f"[{app_id}·{index}] ready ")]
 
-    def spawned(self, index: int) -> list[tuple[float, int]]:
+    def spawned(self, index: int, app_id: str = APP_ID) -> list[tuple[float, int]]:
         return [(t, int(line.rsplit("(pid ", 1)[1].rstrip(")")))
-                for t, line in self.err.find(f"started replica {APP_ID}·{index} (pid ")]
+                for t, line in self.err.find(f"started replica {app_id}·{index} (pid ")]
 
     async def admin(self, method: str, path: str, body=None) -> dict:
         port = int(self.admin_url.rsplit(":", 1)[1])
@@ -2743,6 +2778,362 @@ def phase_bindings(smi: str) -> int:
     return launched
 
 
+OBS_SCORER, OBS_CALLER = "scorer", "caller"
+OBS_CALLS, OBS_FLOOD, OBS_MAX_INFLIGHT = 32, 64, 4
+OBS_SLOW_S = 0.02  # a two-hop call takes tens of ms: each one is slow
+OBS_TOKEN = "chip-smoke-observability"
+OBS_APPS = '''"""The observability phase's apps: the scorer and a caller, each
+process recording its spans into a file of its own beside this module."""
+import os
+
+from tasksrunner_torch import service
+from tasksrunner_torch.app import App
+
+
+def _own_span_file(role):
+    os.environ["TASKSRUNNER_TRACE_DB"] = os.path.join(
+        os.path.dirname(__file__), "traces", f"{role}-{os.environ['TASKSRUNNER_REPLICA']}.db")
+
+
+def scorer(device=None):
+    _own_span_file("scorer")
+    return service.make_app(device=device)
+
+
+def caller(device=None):  # serves nothing: the device is not used
+    _own_span_file("caller")
+    return App("caller")
+'''
+
+
+def _observability_files(data: Path) -> Path:
+    """The apps' module and the run file: the scorer at exactly two
+    replicas with admission on and a small in-flight line, and a caller;
+    no components (the scorer's ``/scores`` then has no store)."""
+    (data / "obs_apps.py").write_text(OBS_APPS)
+    run_file = data / "run.yaml"
+    run_file.write_text(
+        f"registry_file: {data / 'apps.json'}\napps:\n"
+        f"  - app_id: {OBS_SCORER}\n    module: obs_apps:scorer\n"
+        "    health: { interval_seconds: 1 }\n"
+        "    env:\n      TASKSRUNNER_ADMISSION: \"1\"\n"
+        f"      TASKSRUNNER_ADMISSION_MAX_INFLIGHT: \"{OBS_MAX_INFLIGHT}\"\n"
+        "    scale:\n      min_replicas: 2\n      max_replicas: 2\n"
+        f"  - app_id: {OBS_CALLER}\n    module: obs_apps:caller\n")
+    return run_file
+
+
+def _exposition(text: str) -> dict:
+    """The Prometheus text checked: one ``# TYPE`` a name, every
+    histogram's buckets nondecreasing up to ``+Inf`` equal to its
+    ``_count``. Returns each sample line's value by its name and labels."""
+    types = re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M)
+    check(len(types) == len({n for n, _ in types}), "a name with two # TYPE lines")
+    samples: dict[str, float] = {}
+    buckets: dict[str, list[tuple[str, float]]] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        samples[key] = float(value)
+        m = re.fullmatch(r'(\w+)_bucket\{(.*?),?le="([^"]+)"\}', key)
+        if m:
+            buckets.setdefault(f"{m.group(1)}{{{m.group(2)}}}", []).append((m.group(3), float(value)))
+    for series, rows in buckets.items():
+        counts = [c for _, c in rows]
+        name, labels = series.split("{", 1)
+        count = samples[f"{name}_count" + ("{" + labels if labels != "}" else "")]
+        check(counts == sorted(counts) and rows[-1][0] == "+Inf" and counts[-1] == count,
+              f"{series}: buckets {rows[-3:]} against _count {count}")
+    check(bool(buckets), "no histogram in the exposition")
+    return samples
+
+
+def _verb_run(env: dict, *args: str, rc: int = 0) -> tuple[str, float]:
+    """One ``python -m tasksrunner_torch`` verb: its stdout and seconds."""
+    started = time.monotonic()
+    out = subprocess.run([sys.executable, "-m", "tasksrunner_torch", *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    check(out.returncode == rc, f"{' '.join(args)} exited {out.returncode}, not {rc}: "
+                                f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    return out.stdout, time.monotonic() - started
+
+
+async def _observability_phase(data: Path) -> dict:
+    """The phase's run, on the card."""
+    run_file = _observability_files(data)
+    registry, dumps = data / "apps.json", data / "flightrec"
+    env = {**os.environ, TOKEN_ENV: OBS_TOKEN, "TASKSRUNNER_FLIGHTREC_DIR": str(dumps),
+           "TASKSRUNNER_SLOW_THRESHOLD_SECONDS": str(OBS_SLOW_S),
+           "PYTHONPATH": os.pathsep.join(filter(None, (str(data), os.environ.get("PYTHONPATH"))))}
+    auth = {TOKEN_HEADER: OBS_TOKEN}
+    baseline = len(_card_apps()[0])
+    orch = _Orchestrated(run_file, data, None, env=env, token=OBS_TOKEN)
+    phase_t = time.monotonic()
+    rng = np.random.default_rng(15)
+    sent: set[str] = set()  # every trace id the phase sent
+
+    def traceparent() -> dict:
+        trace = "".join(f"{b:02x}" for b in rng.integers(0, 256, 16))
+        sent.add(trace)
+        return {"traceparent": f"00-{trace}-{rng.integers(1, 2**62):016x}-01", **auth}
+
+    try:
+        async def stats(app_port: int) -> dict:
+            status, _, body = await _http(app_port, "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats answered {status}")
+            return json.loads(body)
+
+        # 1. the scorer's two replicas and the caller, ready
+        fields = {}
+        for app_id, index in ((OBS_SCORER, 0), (OBS_SCORER, 1), (OBS_CALLER, 0)):
+            await _until(lambda: orch.ready(index, app_id), 600, f"{app_id}·{index} never ready")
+            fields[(app_id, index)] = orch.ready(index, app_id)[0][1]
+        scorer_ports = [(int(fields[(OBS_SCORER, i)]["app_port"]),
+                         int(fields[(OBS_SCORER, i)]["sidecar_port"])) for i in range(2)]
+        for app_port, _ in scorer_ports:
+            while not (await stats(app_port))["ready"]:
+                await asyncio.sleep(0.05)
+        caller = int(fields[(OBS_CALLER, 0)]["sidecar_port"])
+        ready_s = {f"{a}·{i}": orch.ready(i, a)[0][0] - orch.spawned(i, a)[0][0]
+                   for a, i in fields}
+        orch.admin_url = json.loads((data / "orchestrator.json").read_text())["admin_url"]
+        status = await orch.admin("GET", "/apps")
+        pids = {a["app_id"]: [r["pid"] for r in a["replicas"]] for a in status["apps"]}
+        # the scorers hold a context each; the caller may hold none
+        apps, used = _card_apps()
+        listed = {pid for pid, _ in apps}
+        check(set(pids[OBS_SCORER]) <= listed if listed & set(pids[OBS_SCORER])
+              else baseline + 2 <= len(apps) <= baseline + 3,
+              f"the scorer's replicas {pids[OBS_SCORER]} not on the card: {apps}")
+        on_card_serving = {"compute_apps": [f"{p}, {m}" for p, m in apps], "memory_used": used}
+
+        # 2. 32 two-hop /score calls through the caller's sidecar, two at a
+        # time (under the replicas' in-flight line), each in a trace of its own
+        calls: list[tuple[str, float, int]] = []
+        sem = asyncio.Semaphore(2)
+
+        async def score(i: int) -> None:
+            headers = traceparent()
+            task = json.dumps(_saved_task("obs", i)).encode()
+            async with sem:
+                started = time.monotonic()
+                reply, _, _ = await _http(caller, "POST", f"/v1.0/invoke/{OBS_SCORER}/method/score",
+                                          task, headers=headers)
+                calls.append((headers["traceparent"][3:35], time.monotonic() - started, reply))
+
+        await asyncio.gather(*(score(i) for i in range(OBS_CALLS)))
+        check([c for _, _, c in calls] == [200] * OBS_CALLS, f"two-hop statuses {calls}")
+
+        # 3. each trace through the admin API: the caller's client span and
+        # the replica's hop, app server span and ml-request; the batch's own
+        # trace holds its ml-batch. The two pieces share the trace id only:
+        # the replica's sidecar records no span for the request it receives
+        # (nor does the JAX one), so its hop's parent is in no file. A
+        # sidecar serves spans once its recorder's timer has made the span
+        # file (as in the JAX package)
+        await _until(lambda: len(list((data / "traces").glob("*.db"))) == 3, 10,
+                     "the span files were not made")
+        admin_ms, batch_traces = [], set()
+        for trace, _, _ in calls:
+            started = time.monotonic()
+            doc = await orch.admin("GET", f"/traces/{trace}")
+            admin_ms.append(time.monotonic() - started)
+            check(doc["replicas"] == 3, f"{trace}: {doc['replicas']} sidecars answered, not 3")
+            rows = {(r["role"], r["kind"], r["name"]): r for r in doc["spans"]}
+            want = {(OBS_CALLER, "client", f"invoke {OBS_SCORER}/score"),
+                    (OBS_SCORER, "client", f"invoke {OBS_SCORER}/score"),
+                    (OBS_SCORER, "server", "POST /score"),
+                    (OBS_SCORER, "internal", "ml-request")}
+            check(set(rows) == want and len(doc["spans"]) == 4, f"{trace}: {sorted(rows)}")
+            hop, server, request = (rows[(OBS_SCORER, "client", f"invoke {OBS_SCORER}/score")],
+                                    rows[(OBS_SCORER, "server", "POST /score")],
+                                    rows[(OBS_SCORER, "internal", "ml-request")])
+            check(server["parent_id"] == hop["span_id"] and request["parent_id"] == server["span_id"]
+                  and all(r["trace_id"] == trace and r["status"] == 200 for r in doc["spans"]),
+                  f"{trace}: the replica's spans are not one chain: {doc['spans']}")
+            check(hop["parent_id"] not in {r["span_id"] for r in doc["spans"]},
+                  f"{trace}: the replica's hop is linked to a recorded span: {doc['spans']}")
+            batch_traces.add(json.loads(request["attrs"])["batch_trace"])
+        for batch in sorted(batch_traces):
+            doc = await orch.admin("GET", f"/traces/{batch}")
+            check([(r["role"], r["name"]) for r in doc["spans"]] == [(OBS_SCORER, "ml-batch")],
+                  f"batch trace {batch}: {doc['spans']}")
+        dbs = sorted(str(p) for p in (data / "traces").glob("*.db"))
+        slowest = max(calls, key=lambda c: c[1])[0]
+        critical, _ = _verb_run(env, "traces", "critical", slowest, "--db", ",".join(dbs))
+        whole = critical.splitlines()
+        check(whole[0].startswith(f"critical path: 1 hops over 4 spans, root "
+                                  f"'invoke {OBS_SCORER}/score'")
+              and f"[{OBS_CALLER}] client" in whole[1],
+              f"the chain over all span files is not the caller's span alone: {critical}")
+        scorer_dbs = ",".join(d for d in dbs if "/scorer-" in d)
+        replica_chain, _ = _verb_run(env, "traces", "critical", slowest, "--db", scorer_dbs)
+        hops = [line.split("] ", 1)[1].split(None, 1) for line in replica_chain.splitlines()
+                if "] " in line]
+        check([h[1].strip().split("  (")[0] for h in hops] == [
+            f"invoke {OBS_SCORER}/score", "POST /score", "ml-request"],
+              f"the replica's chain: {replica_chain}")
+        batch_of_slowest = [json.loads(r["attrs"])["batch_trace"] for r in (
+            await orch.admin("GET", f"/traces/{slowest}"))["spans"] if r["name"] == "ml-request"]
+        batch_chain, _ = _verb_run(env, "traces", "critical", batch_of_slowest[0], "--db",
+                                   scorer_dbs)
+        check("ml-batch" in batch_chain, f"the batch's chain: {batch_chain}")
+
+        # 4. each replica's /metrics: 401 without the token, text 0.0.4 with
+        # it; ml_batches_total against /ml/stats, and the merged percentiles
+        batches, counted_batches = 0, 0.0
+        for app_port, sidecar_port in scorer_ports:
+            status, _, _ = await _http(sidecar_port, "GET", "/metrics")
+            check(status == 401, f"/metrics without the token answered {status}")
+            status, headers, body = await _http(sidecar_port, "GET", "/metrics", headers=auth)
+            check(status == 200 and headers.get("content-type", "").startswith(
+                "text/plain; version=0.0.4"), f"/metrics answered {status} {headers}")
+            samples = _exposition(body.decode())
+            counted_batches += sum(v for k, v in samples.items()
+                                   if k.startswith("ml_batches_total{"))
+            batches += sum((await stats(app_port))["batches"].values())
+            check(any(k.startswith("ml_queue_wait_seconds_bucket{") for k in samples)
+                  and "ml_queue_depth" in samples, "a replica's /metrics lacks the ml_ series")
+        check(counted_batches == batches, f"ml_batches_total {counted_batches} != {batches}")
+        percentiles, _ = _verb_run(env, "metrics", OBS_SCORER, "--percentiles",
+                                   "--registry-file", str(registry))
+        check(percentiles.startswith("# merged across 2 replica(s)"), percentiles[:200])
+
+        # 5. a flood of 64 closed-loop callers on replica 0's sidecar: shed
+        # with 429 + Retry-After, and the shed dumps the flight recorder
+        shed_retry_after, served = [], 0
+
+        async def flooder() -> None:
+            nonlocal served
+            deadline = time.monotonic() + 30
+            while True:
+                check(time.monotonic() < deadline, "a flooder was never shed")
+                reply, headers, _ = await _http(
+                    scorer_ports[0][1], "POST", f"/v1.0/invoke/{OBS_SCORER}/method/score",
+                    json.dumps(_saved_task("flood", served)).encode(), headers=traceparent())
+                if reply == 429:
+                    shed_retry_after.append(headers.get("retry-after"))
+                    return
+                check(reply == 200, f"flood call answered {reply}")
+                served += 1
+
+        flood_t = time.monotonic()
+        await asyncio.gather(*(flooder() for _ in range(OBS_FLOOD)))
+        check(len(shed_retry_after) == OBS_FLOOD and all(
+            r is not None and int(r) >= 1 for r in shed_retry_after),
+              f"429s without Retry-After: {shed_retry_after}")
+        pid0 = pids[OBS_SCORER][0]
+        await _until(lambda: list(dumps.glob(f"{OBS_SCORER}-{pid0}-*-admission-shed.json")), 10,
+                     "no admission-shed dump")
+        shed_file = sorted(dumps.glob(f"{OBS_SCORER}-{pid0}-*-admission-shed.json"))[0]
+        shed = json.loads(shed_file.read_text())
+        entries = shed["entries"]
+        routed = [e for e in entries if e["name"] == "invoke"]
+        check(bool(routed) and all(e["trace"] in sent for e in routed),
+              f"the shed dump's invoke entries are not the phase's calls: {routed[:3]}")
+        # the dump is taken as the score crosses 1.0, before the gauge shows it
+        check({"ml_queue_depth", "admission_saturation"} <= set(shed["gauges"])
+              and shed["detail"]["score"] >= 1.0, f"shed dump {shed['detail']} {shed['gauges']}")
+        slow = sorted(dumps.glob("*-slow-exemplar.json"))
+        check(bool(slow), "no slow-exemplar dump")
+        listing, _ = _verb_run(env, "flightrec", "--dir", str(dumps))
+        check("admission-shed" in listing and "slow-exemplar" in listing, listing[-1000:])
+        rendered, _ = _verb_run(env, "flightrec", "--dump", str(shed_file))
+        check(rendered.startswith(f"{OBS_SCORER} pid {pid0} — admission-shed"), rendered[:300])
+
+        # 6. a request that fails in the app (no store for /scores): its
+        # traceback is logged with the role and its trace
+        headers = traceparent()
+        deadline = time.monotonic() + 30
+        while True:  # until replica 0's gate has reopened
+            reply, _, _ = await _http(caller, "GET", f"/v1.0/invoke/{OBS_SCORER}/method/scores/x",
+                                      headers=headers)
+            if reply == 500:
+                break
+            check(reply == 429 and time.monotonic() < deadline, f"/scores/x answered {reply}")
+            await asyncio.sleep(0.25)
+        failed = headers["traceparent"][3:19]
+        logs, _ = _verb_run(env, "logs", OBS_SCORER, "--tail", "2000",
+                            "--registry-file", str(registry))
+        tagged = [line for line in logs.splitlines()
+                  if f"role={OBS_SCORER} trace={failed} " in line]
+        check(any("GET /scores/x failed" in line for line in tagged),
+              f"no log line of the failed request tagged trace={failed}: {logs[-1500:]}")
+        check(all(re.search(r"role=\S+ trace=(-|[0-9a-f]{16}) ", line)
+                  for line in logs.splitlines() if " role=" in line), "an untagged log line")
+
+        # 7. the replicas' last stats (once replica 0 admits again), then
+        # SIGTERM: every clean stop logs its launches, none leaves an
+        # unclean-shutdown dump
+        deadline = time.monotonic() + 30
+        while (await _http(scorer_ports[0][0], "GET", "/ml/stats"))[0] == 429:
+            check(time.monotonic() < deadline, "replica 0 kept shedding")
+            await asyncio.sleep(0.25)
+        last_stats = {pid: await stats(port) for pid, (port, _) in zip(pids[OBS_SCORER],
+                                                                       scorer_ports)}
+        rc = orch.stop()
+        check(rc == 0, f"the orchestrator exited {rc}: "
+                       f"{(data / 'orchestrator.log').read_text()[-3000:]}")
+        after = _check_on_card([], "after the stop", baseline)
+        check(json.loads(registry.read_text()) == {}, "entries left in the registry")
+        check(not list(dumps.glob("*-unclean-shutdown.json")), "an unclean-shutdown dump")
+        counted = {}
+        for _, line in orch.out.find(f" kernel launches app={OBS_SCORER} pid="):
+            pid, launches = line.split(" pid=", 1)[1].split(" ", 1)
+            counted[int(pid)] = json.loads(launches)
+        check(sorted(counted) == sorted(last_stats),
+              f"launch lines for {sorted(counted)}, replicas {sorted(last_stats)}")
+        expected = {p: expected_serve_launches(s, torch.cuda.device_count())
+                    for p, s in last_stats.items()}
+        check(all(counted[p]["flash_fwd"] == expected[p] for p in expected),
+              f"B1 launches {counted} != expected {expected}")
+        check(all(v == 0 for c in counted.values() for k, v in c.items() if k != "flash_fwd"),
+              f"a replica launched a backward or ring kernel: {counted}")
+        return {"spawn_to_ready_s": ready_s, "two_hop_ms": _p50_max_ms([c[1] for c in calls]),
+                "admin_traces_ms": _p50_max_ms(admin_ms), "batch_traces": len(batch_traces),
+                "critical_all_dbs": critical.splitlines(),
+                "critical_replica": replica_chain.splitlines(),
+                "ml_batches_total": counted_batches,
+                "flood": {"served": served, "shed": len(shed_retry_after),
+                          "seconds": time.monotonic() - flood_t,
+                          "retry_after": sorted(set(shed_retry_after))},
+                "dumps": sorted(p.name.split("-", 3)[-1] for p in dumps.glob("*.json")),
+                "shed_dump": {"entries": len(entries), "gauges": shed["gauges"],
+                              "detail": shed["detail"]},
+                "on_card": on_card_serving, "after_stop": after,
+                "card_memory_per_scorer_mib": (
+                    (_mib(on_card_serving["memory_used"]) - _mib(after["memory_used"]))
+                    / len(pids[OBS_SCORER])),
+                "launches": {str(p): c["flash_fwd"] for p, c in counted.items()},
+                "expected_launches": {str(p): e for p, e in expected.items()}}
+    except BaseException:
+        for t, line in sorted(orch.err.lines + [x for x in orch.out.lines if any(
+                w in x[1] for w in (" ready ", "WARNING", "ERROR", "Traceback", "Error"))]
+                )[-80:]:
+            print(f"{t - phase_t:9.3f} {line}", file=sys.stderr)
+        raise
+    finally:
+        orch.kill()
+        for entries in (json.loads(registry.read_text()).values() if registry.exists() else []):
+            for entry in entries:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(entry["pid"], signal.SIGKILL)  # replicas a failed run left behind
+
+
+def phase_observability(smi: str) -> int:
+    """The scorer operated through its telemetry under ``python -m
+    tasksrunner_torch run``: returns B1's launches in its replicas."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-observability-") as data:
+        result = asyncio.run(_observability_phase(Path(data)))
+    launched = sum(result["launches"].values())
+    emit({"phase": "observability", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched})
+    check(launched > 0, "the observed replicas launched no flash kernel")
+    return launched
+
+
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
               mesh: Mesh | None = None):
     """One train step from a copy of ``params``: (new params, loss)."""
@@ -3301,27 +3692,41 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    phase_build()
-    worst_err = phase_kernel_vs_plain()
-    worst_err["flash_ring"] = phase_ring_kernel_vs_plain()
-    worst_err["flash_ring_bwd"] = phase_ring_bwd_kernel_vs_plain()
-    phase_matmul()
-    phase_gradient()
-    phase_ring()
-    phase_forward()
-    launches = {"flash_fwd": phase_serve() + phase_runtime(smi) + phase_sidecar(smi)
-                + phase_orchestrator(smi) + phase_deploy(smi) + phase_bindings(smi)}
-    trained = phase_train()
+    started, seconds = time.monotonic(), {}
+
+    def clocked(phase, *args):
+        """A phase run, its seconds kept under its name."""
+        t = time.monotonic()
+        try:
+            return phase(*args)
+        finally:
+            seconds[phase.__name__.removeprefix("phase_")] = time.monotonic() - t
+
+    smi = clocked(phase_device)
+    clocked(phase_build)
+    worst_err = clocked(phase_kernel_vs_plain)
+    worst_err["flash_ring"] = clocked(phase_ring_kernel_vs_plain)
+    worst_err["flash_ring_bwd"] = clocked(phase_ring_bwd_kernel_vs_plain)
+    clocked(phase_matmul)
+    clocked(phase_gradient)
+    clocked(phase_ring)
+    clocked(phase_forward)
+    launches = {"flash_fwd": clocked(phase_serve) + clocked(phase_runtime, smi)
+                + clocked(phase_sidecar, smi) + clocked(phase_orchestrator, smi)
+                + clocked(phase_deploy, smi) + clocked(phase_bindings, smi)
+                + clocked(phase_observability, smi)}
+    trained = clocked(phase_train)
     launches.update({name: trained[name] for name in BWD_VARIANTS})
-    sp_launches = phase_sequence_parallel()
+    sp_launches = clocked(phase_sequence_parallel)
     launches.update({name: sp_launches[name] for name in ("flash_ring", "flash_ring_bwd")})
-    phase_sharded()
-    timed = phase_times()
-    phase_profile()
-    benched = phase_bench(smi)
+    clocked(phase_sharded)
+    timed = clocked(phase_times)
+    clocked(phase_profile)
+    benched = clocked(phase_bench, smi)
     for name in ("flash_fwd", "flash_bwd_delta"):
         launches[name] += benched[name]
+    emit({"phase": "clock", "seconds_by_phase": seconds,
+          "seconds": time.monotonic() - started})
     sources = {"flash_fwd": ("tasksrunner_torch/csrc/flash_fwd.cu",
                              "tasksrunner/ml/flash.py:130"),
                "flash_bwd_delta": ("tasksrunner_torch/csrc/flash_bwd.cu",

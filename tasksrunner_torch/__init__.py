@@ -8,7 +8,9 @@ each counterpart is easy to find:
 * ``device``      – ``tasksrunner/ml/platform.py``: which device runs
 * ``envflag``     – the ``TASKSRUNNER_*`` flags the scorer reads
 * ``errors``      – ``SaturatedError``
-* ``metrics``     – the part of ``MetricsRegistry`` the batcher calls
+* ``metrics``     – the part of ``MetricsRegistry`` the runtime calls,
+  its merges and its Prometheus text; ``names``, every metric name
+* ``ids``         – ``tasksrunner/ids.py``: cheap span, trace and message ids
 * ``model``       – ``tasksrunner/ml/model.py``: config, params, forward,
   loss and the SGD step, on one device, with a sequence-parallel mesh or
   sharded dp × sp × tp over a process group; the serving placement
@@ -37,12 +39,14 @@ each counterpart is easy to find:
   queue, cron, blob and mail bindings),
   ``invoke`` (the app-id resolver), ``security`` (grants),
   ``admission``, ``tracing``, ``spans`` (the runtime's sqlite trace
-  file) and ``cloudevents``
+  file), ``flightrec`` (the black-box ring), ``logconfig`` (role- and
+  trace-tagged log lines), ``eventloop`` (the uvloop switch) and
+  ``cloudevents``
 * ``orchestrator`` – ``tasksrunner/orchestrator/``: run files, supervised
   and autoscaled replicas, the control-plane lease (``state.lease``) and
   the admin API
-* ``cli``         – ``python -m tasksrunner_torch host|serve|sidecar|run``
-  and the orchestrator's admin verbs
+* ``cli``         – ``python -m tasksrunner_torch host|serve|sidecar|run``,
+  the orchestrator's admin verbs and the operator's verbs
 * ``graft_entry`` – ``__graft_entry__.py``'s ``entry`` and its
   self-verifying ``dryrun_multichip`` over spawned ranks
 

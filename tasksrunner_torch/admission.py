@@ -9,7 +9,8 @@ While it sheds, the app's front door (``App.handle``) answers every
 request but ``/healthz`` and ``/tasksrunner/*`` with 429 and a
 ``Retry-After`` of ceil(score) seconds, clamped to 1..30. Shedding stops
 only when the score falls below 0.75 of the threshold, so the gate does
-not flap at 1.0.
+not flap at 1.0. Entering the shed state dumps the flight recorder's
+ring (:mod:`tasksrunner_torch.flightrec`, reason ``admission-shed``).
 
 The signals, each a ratio: the event loop's lag
 (``event_loop_lag_seconds``, from :mod:`tasksrunner_torch.probes`) over
@@ -35,6 +36,7 @@ import logging
 import math
 from typing import Callable
 
+from tasksrunner_torch import flightrec
 from tasksrunner_torch.envflag import env_flag, env_number
 from tasksrunner_torch.metrics import MetricsRegistry, metrics as default_metrics
 from tasksrunner_torch.probes import LAG_GAUGE
@@ -130,6 +132,8 @@ class AdmissionController:
             self.shedding = True
             logger.warning("admission: shedding (saturation %.2f >= 1.0; "
                            "Retry-After %ds)", score, self.retry_after_seconds())
+            # what led up to the trip: the flight recorder's ring
+            flightrec.dump("admission-shed", {"score": score})
         elif self.shedding and score < EXIT_RATIO:
             self.shedding = False
             logger.info("admission: admitting again (saturation %.2f < %.2f)",

@@ -13,7 +13,9 @@
   published as gauges; ``saturation()`` reports the worst ratio against
   ``max_queue`` / ``max_tokens``, and ``submit`` sheds with
   :class:`~tasksrunner_torch.errors.SaturatedError` once the queue is
-  full.
+  full. The ``ml_*`` series go into the process-wide registry
+  (:data:`tasksrunner_torch.metrics.metrics`) unless ``registry=`` names
+  another, as in the JAX batcher.
 
 * **Spans.** When spans are recorded (:mod:`tasksrunner_torch.spans`),
   ``submit`` captures the submitter's trace context; each batch records
@@ -42,8 +44,9 @@ from typing import Any, Callable, Sequence
 from tasksrunner_torch import spans
 from tasksrunner_torch.envflag import env_number, env_str
 from tasksrunner_torch.errors import SaturatedError
-from tasksrunner_torch.metrics import MetricsRegistry
-from tasksrunner_torch.tracing import TraceContext, current_trace, hex8, trace_scope
+from tasksrunner_torch.ids import hex8
+from tasksrunner_torch.metrics import MetricsRegistry, metrics as default_metrics
+from tasksrunner_torch.tracing import TraceContext, current_trace, trace_scope
 
 logger = logging.getLogger(__name__)
 
@@ -138,7 +141,9 @@ class MicroBatcher:
         self.config = config if config is not None else BatcherConfig()
         self._run_batch = run_batch
         self._tokens_of = tokens_of if tokens_of is not None else (lambda _: 1)
-        self.registry = registry if registry is not None else MetricsRegistry()
+        #: where the ``ml_*`` series go: the process-wide registry unless
+        #: one is given, so a hosted replica's sidecar serves them
+        self.registry = registry if registry is not None else default_metrics
         self._queue: asyncio.Queue[_Pending] = asyncio.Queue()
         self._task: asyncio.Task | None = None
         self._tokens_in_flight = 0

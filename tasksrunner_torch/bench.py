@@ -19,7 +19,8 @@ lane (``run_tpu_step_bench``, bench.py:1844) and its serving lanes
   (``TASKSRUNNER_ML_BATCHING=0``) against a batched one (``=1``), and a
   flood drill that offers more than the queue admits. Each lane reads
   its queue wait and service time per bucket from a diff of the served
-  app's own batcher registry, and its recompiles from ``/ml/stats``'s
+  app's registry (the process's, which other lanes also write: only
+  the diff is the lane's), and its recompiles from ``/ml/stats``'s
   ``jit_cache_size`` (distinct shapes run).
 
 Every lane runs on ``cuda:0`` unless ``device="cpu"`` is given, and

@@ -21,11 +21,36 @@
   manifest (:mod:`tasksrunner_torch.deploy`) checked, diffed against the
   recorded state, applied (the run file that ``run`` reads, and its
   components) or taken down;
-* ``secret STORE KEY --app-id ID``: one secret read through a running
-  app's sidecar.
+* ``secret STORE KEY --app-id ID``, ``invoke APP_ID METHOD``, ``publish
+  PUBSUB TOPIC --app-id ID [--count N]``, ``state get|set|delete|query
+  STORE [KEY] --app-id ID``: one-shot probes through a running app's
+  sidecar, found in the registry file (``--count`` floods N copies at
+  once);
+* ``components DIR``: the component files read and each type's driver
+  checked;
+* ``metrics APP_ID [--json|--percentiles|--slow NAME]``: an app's
+  counters from its sidecar's metadata, or its histograms' percentiles
+  or slow exemplars merged over every replica;
+* ``traces list|show|critical|query|map``: the span files (``--db``, a
+  comma-separated list assembles one trace across replicas; ``query``
+  runs SQL on a read-only connection; ``map --mermaid``);
+* ``flightrec [--dump FILE]``: the flight recorder's dumps, or one dump;
+* ``dlq list|show|requeue|purge COMPONENT [TOPIC]``: the dead letters of
+  a broker's consumer group or of a queue binding.
+
+``repl``, ``shards``, ``actors``, ``workflows``, ``chaos``, ``lint`` and
+``verify`` are refused: their modules are not ported yet (ROADMAP A20,
+A21, A23, A27). The printed lines and exit codes are the JAX verbs'.
 
 ``host`` and ``sidecar`` apply the ``kind: Resiliency`` documents of
-``--components`` to the app's runtime.
+``--components`` to the app's runtime. ``host``, ``serve``, ``sidecar``
+and ``run`` log through :func:`~tasksrunner_torch.logconfig.configure_logging`
+(every line tagged ``role=`` and ``trace=``; the role is the app's id,
+``{id}-sidecar`` or ``orchestrator``) and install uvloop's loop policy
+when ``TASKSRUNNER_UVLOOP`` asks for it (:mod:`~tasksrunner_torch.eventloop`).
+``host`` records spans into ``.tasksrunner/traces.db`` unless
+``TASKSRUNNER_TRACE_DB`` names another file, or is set empty to record
+none.
 
 ``host``, ``serve`` and ``sidecar`` print the line the JAX commands print
 once they serve (``ready app=… app_port=… sidecar_port=…``), so a script
@@ -54,8 +79,11 @@ import urllib.request
 from typing import Awaitable, Callable
 
 from tasksrunner_torch.app import App
-from tasksrunner_torch.client import AppClient
+from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, AppClient, http_request
 from tasksrunner_torch.errors import TasksRunnerError
+
+#: how the verbs name this command line in the hints they print
+PROG = "python -m tasksrunner_torch"
 
 
 def _load_factory(spec: str):
@@ -102,6 +130,21 @@ async def start_app(app: App, *, port: int = 0, sidecar_port: int | None = None)
     return await app.start("127.0.0.1", port)
 
 
+def _run_loop(main: Awaitable[None]) -> None:
+    """``asyncio.run(main)`` under uvloop's policy when asked for: every
+    long-running command runs its loop through here."""
+    from tasksrunner_torch.eventloop import maybe_enable_uvloop
+
+    maybe_enable_uvloop()
+    asyncio.run(main)
+
+
+def _log_as(role: str, args) -> None:
+    from tasksrunner_torch.logconfig import configure_logging
+
+    configure_logging(role, level=getattr(logging, args.log_level.upper()))
+
+
 def _serve(start: Callable[[], Awaitable[str]], stop: Callable[[], Awaitable[None]]) -> None:
     """Run ``start``, print the ready line it returns, and serve until
     SIGTERM or SIGINT; then ``stop``."""
@@ -116,15 +159,20 @@ def _serve(start: Callable[[], Awaitable[str]], stop: Callable[[], Awaitable[Non
         finally:
             await stop()
 
-    asyncio.run(main())
+    _run_loop(main())
 
 
 def _cmd_host(args) -> None:
+    from tasksrunner_torch import spans
     from tasksrunner_torch.hosting import AppHost
 
     app = make_app(args.module, args.device)
     if args.app_id:
         app.app_id = args.app_id
+    _log_as(app.app_id, args)
+    # hosted services record spans by default; TASKSRUNNER_TRACE_DB= (empty) turns it off
+    spans.configure_spans(app.app_id,
+                          os.environ.get(spans.ENV_VAR, ".tasksrunner/traces.db") or None)
     host = AppHost(app, components_path=args.components, app_port=args.app_port,
                    sidecar_port=args.sidecar_port, bind=args.host,
                    registry_file=args.registry_file, register=not args.no_register)
@@ -147,6 +195,7 @@ def _cmd_host(args) -> None:
 
 def _cmd_serve(args) -> None:
     app = make_app(args.module, args.device)
+    _log_as(app.app_id, args)
 
     async def start() -> str:
         port = await start_app(app, port=args.port, sidecar_port=args.sidecar_port)
@@ -164,6 +213,7 @@ def _cmd_sidecar(args) -> None:
     from tasksrunner_torch.security import grants_from_env
     from tasksrunner_torch.sidecar import Sidecar
 
+    _log_as(f"{args.app_id}-sidecar", args)
     specs = load_components(args.components) if args.components else []
     policies = load_resiliency(args.components) if args.components else []
     resolver = NameResolver(registry_file=args.registry_file)
@@ -193,12 +243,13 @@ def _cmd_run(args) -> None:
     from tasksrunner_torch.orchestrator.config import load_run_config
     from tasksrunner_torch.orchestrator.run import run_from_config
 
+    _log_as("orchestrator", args)
     config = load_run_config(args.config)
     if args.standby:
         config.standby = True
     if args.no_adopt:
         config.adopt = False
-    asyncio.run(run_from_config(config, device=args.device))
+    _run_loop(run_from_config(config, device=args.device))
 
 
 def _cmd_deploy(args) -> None:
@@ -242,30 +293,8 @@ def _cmd_deploy(args) -> None:
 
 
 def _cmd_secret(args) -> None:
-    """``GET /v1.0/secrets/{store}/{key}`` through the app's sidecar,
-    found in the registry file; the reply printed, HTTP ≥ 400 an error."""
-    from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
-    from tasksrunner_torch.errors import AppNotFound
-    from tasksrunner_torch.invoke.resolver import NameResolver
-
-    resolver = NameResolver(registry_file=args.registry_file)
-    try:
-        addr = resolver.resolve(args.app_id)
-    except AppNotFound:
-        known = ", ".join(resolver.known_apps()) or "(none registered)"
-        raise SystemExit(f"app {args.app_id!r} is not registered; running apps: {known}")
-    headers = {TOKEN_HEADER: os.environ[TOKEN_ENV]} if os.environ.get(TOKEN_ENV) else {}
-    status, _, body = asyncio.run(asyncio.wait_for(http_request(
-        addr.host, addr.sidecar_port, "GET", f"/v1.0/secrets/{args.store}/{args.key}",
-        headers=headers), 30))
-    text = body.decode("utf-8", "replace")
-    if text:
-        try:
-            print(json.dumps(json.loads(text), indent=2))
-        except ValueError:
-            print(text)
-    if status >= 400:
-        raise SystemExit(f"HTTP {status}")
+    """``GET /v1.0/secrets/{store}/{key}`` through the app's sidecar."""
+    _sidecar_request(args, "GET", f"secrets/{args.store}/{args.key}")
 
 
 def _admin_request(registry_file: str, method: str, path: str,
@@ -273,7 +302,6 @@ def _admin_request(registry_file: str, method: str, path: str,
     """One call to the running orchestrator's admin API, whose address is
     in ``orchestrator.json`` beside the registry file; an unreadable file
     (a torn write of a killed process) is removed."""
-    from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
     from tasksrunner_torch.orchestrator.admin import info_path
 
     info_file = info_path(registry_file)
@@ -371,7 +399,6 @@ def _cmd_revisions(args) -> None:
 async def _probe_replica(app_id: str, addr, index: int | None, headers: dict) -> dict:
     """One row of ``ps``: a dead local pid is stale, else the sidecar's
     ``/v1.0/healthz``, the app's ``/healthz`` and the sidecar's metadata."""
-    from tasksrunner_torch.client import http_request
     from tasksrunner_torch.invoke.resolver import NameResolver
 
     row = {"app_id": app_id, "replica": index, "pid": addr.pid, "app_port": addr.app_port,
@@ -413,7 +440,6 @@ async def _probe_replica(app_id: str, addr, index: int | None, headers: dict) ->
 
 def _cmd_ps(args) -> None:
     """The registered replicas with their health; exits 2 when one is down."""
-    from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
     from tasksrunner_torch.invoke.resolver import NameResolver
 
     registry_path = pathlib.Path(args.registry_file)
@@ -488,9 +514,536 @@ def _cmd_stop(args) -> None:
         raise SystemExit("; ".join(failures))
 
 
+# -- probes through a running app's sidecar ---------------------------------
+
+def _resolve_sidecars(args) -> tuple[list, dict]:
+    """Every registered replica of ``--app-id``, in the registry's order
+    (the first is the one a fresh resolver picks), and the headers every
+    probe sends (the token when one is set)."""
+    from tasksrunner_torch.errors import AppNotFound
+    from tasksrunner_torch.invoke.resolver import NameResolver
+
+    resolver = NameResolver(registry_file=args.registry_file)
+    try:
+        addrs = resolver.resolve_all(args.app_id)
+    except AppNotFound:
+        addrs = []
+    if not addrs:
+        known = ", ".join(resolver.known_apps()) or "(none registered)"
+        raise SystemExit(f"app {args.app_id!r} is not registered; running apps: {known}")
+    headers = {"Content-Type": "application/json"}
+    if os.environ.get(TOKEN_ENV):
+        headers[TOKEN_HEADER] = os.environ[TOKEN_ENV]
+    return addrs, headers
+
+
+async def _sidecar_fetch(addr, method: str, target: str, headers: dict, body: bytes = b"",
+                         timeout: float = 30) -> tuple[int, bytes]:
+    """One request to a replica's sidecar: its status and body."""
+    status, _, raw = await asyncio.wait_for(http_request(
+        addr.host, addr.sidecar_port, method, target, headers=headers, body=body), timeout)
+    return status, raw
+
+
+def _sidecar_request(args, method: str, path: str, body=None, *, query: str = "") -> int:
+    """One ``/v1.0/{path}`` request to ``--app-id``'s sidecar: the reply
+    printed (JSON indented), HTTP ≥ 400 an error naming the status."""
+    addrs, headers = _resolve_sidecars(args)
+    target = f"/v1.0/{path}" + (f"?{query}" if query else "")
+    status, raw = asyncio.run(_sidecar_fetch(
+        addrs[0], method, target, headers, b"" if body is None else json.dumps(body).encode()))
+    text = raw.decode("utf-8", "replace")
+    try:
+        parsed = json.loads(text) if text else None
+    except ValueError:
+        parsed = None
+    if parsed is not None:
+        print(json.dumps(parsed, indent=2))
+    elif text:
+        print(text)
+    if status >= 400:
+        raise SystemExit(f"HTTP {status}")
+    return status
+
+
+def _parse_data(raw: str | None):
+    """``--data``: JSON inline, or ``@file``."""
+    if raw is None:
+        return None
+    if raw.startswith("@"):
+        with open(raw[1:]) as f:
+            raw = f.read()
+    try:
+        return json.loads(raw)
+    except ValueError as exc:
+        raise SystemExit(f"--data is not valid JSON: {exc}")
+
+
+def _cmd_invoke(args) -> None:
+    path, _, query = args.method.partition("?")
+    _sidecar_request(args, args.verb.upper(), f"invoke/{args.app_id}/method/{path}",
+                     _parse_data(args.data), query=query)
+
+
+def _cmd_publish(args) -> None:
+    """One publish, or ``--count`` copies at most 32 at a time, each a
+    dict payload given its ``floodSeq``; exits 2 when any failed."""
+    if args.count <= 1:
+        _sidecar_request(args, "POST", f"publish/{args.pubsub}/{args.topic}",
+                         _parse_data(args.data))
+        return
+    addrs, headers = _resolve_sidecars(args)
+    payload = _parse_data(args.data)
+    target = f"/v1.0/publish/{args.pubsub}/{args.topic}"
+
+    async def flood() -> int:
+        sem = asyncio.Semaphore(32)
+        failures = 0
+
+        async def one(i: int) -> None:
+            nonlocal failures
+            if isinstance(payload, dict):
+                body = {**payload}
+                body.setdefault("floodSeq", i)
+            else:
+                body = {"floodSeq": i} if payload is None else payload
+            async with sem:
+                try:
+                    status, _ = await _sidecar_fetch(addrs[0], "POST", target, headers,
+                                                     json.dumps(body).encode())
+                    failures += status >= 400
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 - a failed publish, never a crashed flood
+                    failures += 1
+
+        await asyncio.gather(*(one(i) for i in range(args.count)))
+        return failures
+
+    start = time.perf_counter()
+    failures = asyncio.run(flood())
+    elapsed = time.perf_counter() - start
+    print(f"published {args.count - failures}/{args.count} to {args.pubsub}/{args.topic} "
+          f"in {elapsed:.2f}s ({(args.count - failures) / max(elapsed, 1e-9):.0f}/s)"
+          + (f", {failures} FAILED" if failures else ""))
+    if failures:
+        raise SystemExit(2)
+
+
+def _cmd_state(args) -> None:
+    store = args.store
+    if args.action == "get":
+        if not args.key:
+            raise SystemExit("state get needs a KEY")
+        _sidecar_request(args, "GET", f"state/{store}/{args.key}")
+    elif args.action == "set":
+        if not args.key or args.data is None:
+            raise SystemExit("state set needs a KEY and --data")
+        _sidecar_request(args, "POST", f"state/{store}",
+                         [{"key": args.key, "value": _parse_data(args.data)}])
+    elif args.action == "delete":
+        if not args.key:
+            raise SystemExit("state delete needs a KEY")
+        _sidecar_request(args, "DELETE", f"state/{store}/{args.key}")
+    else:
+        _sidecar_request(args, "POST", f"state/{store}/query", _parse_data(args.data) or {})
+
+
+def _cmd_components(args) -> None:
+    """Each component of the directory (in ``--app-id``'s scope) with its
+    type, whether the port has its driver, and its scopes; exits 1 when a
+    driver is missing."""
+    from tasksrunner_torch.component.loader import load_components
+    from tasksrunner_torch.component.registry import registered_types
+
+    specs = load_components(args.path, app_id=args.app_id)
+    known = set(registered_types())
+    width = max((len(s.name) for s in specs), default=4)
+    problems = 0
+    for spec in specs:
+        ok = spec.type in known
+        problems += not ok
+        scope = ",".join(spec.scopes) if spec.scopes else "(all apps)"
+        print(f"{spec.name:<{width}}  {spec.type:<32} {'ok' if ok else 'NO DRIVER':<10} "
+              f"scopes={scope}")
+    if problems:
+        raise SystemExit(f"{problems} component(s) have no registered driver")
+
+
+# -- metrics ------------------------------------------------------------------
+
+def _fetch_metadata(addr, headers: dict, app_id: str) -> dict:
+    """One replica's ``/v1.0/metadata``; an error names the status or
+    the failed connection."""
+    try:
+        status, raw = asyncio.run(_sidecar_fetch(addr, "GET", "/v1.0/metadata", headers,
+                                                 timeout=10))
+    except (OSError, asyncio.IncompleteReadError) as exc:  # a timeout is an OSError
+        raise SystemExit(f"cannot reach sidecar of {app_id!r}: {exc}")
+    if status >= 400:
+        hint = (" (set TASKSRUNNER_API_TOKEN — the sidecar requires it)"
+                if status == 401 else "")
+        raise SystemExit(f"sidecar of {app_id!r} returned HTTP {status}{hint}")
+    return json.loads(raw)
+
+
+def _fetch_all_replica_metadata(args) -> list[dict]:
+    """``/v1.0/metadata`` of every registered replica of the app: the
+    merged views cover the whole app; a replica that does not answer is
+    left out."""
+    addrs, headers = _resolve_sidecars(args)
+    payloads = []
+    for addr in addrs:
+        try:
+            payloads.append(_fetch_metadata(addr, headers, args.app_id))
+        except SystemExit:
+            continue
+    if not payloads:
+        raise SystemExit(f"no reachable replica of {args.app_id!r}")
+    return payloads
+
+
+def _series_name(row: dict) -> str:
+    labels = ",".join(f"{k}={v}" for k, v in sorted(row["labels"].items()))
+    return row["name"] + ("{" + labels + "}" if labels else "")
+
+
+def _metrics_percentiles(args) -> None:
+    from tasksrunner_torch.metrics import merge_histogram_snapshots, summarize_histograms
+
+    payloads = _fetch_all_replica_metadata(args)
+    rows = summarize_histograms(merge_histogram_snapshots(
+        p.get("histograms") or {} for p in payloads))
+    if args.json:
+        print(json.dumps({"replicas": len(payloads), "percentiles": rows}, indent=2))
+        return
+    if not rows:
+        print(f"no latency histograms recorded for {args.app_id} "
+              "(is TASKSRUNNER_HISTOGRAMS=0 set?)")
+        return
+    print(f"# merged across {len(payloads)} replica(s); values in ms")
+    width = max(len(_series_name(r)) for r in rows)
+    print(f"{'series':<{width}}  {'count':>7}  {'p50':>8}  {'p95':>8}  {'p99':>8}")
+    for r in rows:
+        print(f"{_series_name(r):<{width}}  {r['count']:>7}  {r['p50'] * 1000:>8.2f}  "
+              f"{r['p95'] * 1000:>8.2f}  {r['p99'] * 1000:>8.2f}")
+
+
+def _metrics_slow(args) -> None:
+    from tasksrunner_torch.metrics import merge_histogram_snapshots
+
+    payloads = _fetch_all_replica_metadata(args)
+    merged = merge_histogram_snapshots(p.get("histograms") or {} for p in payloads)
+    hits = [{"name": name, "labels": series["labels"], "trace_id": trace_id,
+             "seconds": value, "time": when}
+            for name, hist in sorted(merged.items()) if args.slow in name
+            for series in hist["series"]
+            for trace_id, value, when in series.get("exemplars", ())]
+    hits.sort(key=lambda h: h["seconds"], reverse=True)
+    if args.json:
+        print(json.dumps({"replicas": len(payloads), "slow": hits}, indent=2))
+        return
+    if not hits:
+        print(f"no slow-call exemplars matching {args.slow!r} "
+              "(observations must exceed TASKSRUNNER_SLOW_THRESHOLD_SECONDS, "
+              "default 0.25, inside a trace)")
+        return
+    print(f"# slowest observations matching {args.slow!r} across {len(payloads)} replica(s)")
+    for h in hits:
+        print(f"{h['seconds'] * 1000:9.1f} ms  {_series_name(h)}  trace {h['trace_id']}")
+    print(f"# drill down: {PROG} traces show {hits[0]['trace_id']}")
+    print(f"# blame chain: {PROG} traces critical {hits[0]['trace_id']}")
+
+
+def _cmd_metrics(args) -> None:
+    """An app's counters from one replica's sidecar metadata; with
+    ``--percentiles`` or ``--slow``, every replica's histograms merged."""
+    args.app_id = args.app_id or args.app_id_pos
+    if not args.app_id:
+        raise SystemExit(f"metrics: an app id is required ({PROG} metrics <app-id>)")
+    if args.percentiles:
+        _metrics_percentiles(args)
+        return
+    if args.slow:
+        _metrics_slow(args)
+        return
+    addrs, headers = _resolve_sidecars(args)
+    meta = _fetch_metadata(addrs[0], headers, args.app_id)
+    metrics = meta.get("metrics") or {}
+    if args.json:
+        print(json.dumps(metrics, indent=2))
+        return
+    if not metrics:
+        print(f"no metrics recorded for {args.app_id}")
+        return
+    width = max(len(k) for k in metrics)
+    for key in sorted(metrics):
+        value = metrics[key]
+        shown = int(value) if float(value).is_integer() else round(value, 3)
+        print(f"{key:<{width}}  {shown}")
+
+
+# -- traces and the flight recorder ---------------------------------------------
+
+def _span_split(span: dict) -> str:
+    """A span's queue-wait / service split, where its lane recorded one."""
+    attrs = span.get("attrs")
+    if isinstance(attrs, str):
+        try:
+            attrs = json.loads(attrs)
+        except ValueError:
+            return ""
+    if not isinstance(attrs, dict) or "queue_wait" not in attrs:
+        return ""
+    try:
+        return (f"  [wait {float(attrs['queue_wait']) * 1000:.1f}ms"
+                f" / svc {float(attrs.get('service', 0.0)) * 1000:.1f}ms]")
+    except (TypeError, ValueError):
+        return ""
+
+
+def _mermaid_map(edges: list[dict]) -> None:
+    ids: dict[str, str] = {}
+
+    def node(name: str) -> str:
+        # sanitised ids can collide ("ps/saved", "ps-saved"): one a name
+        if name not in ids:
+            base = "n" + "".join(c if c.isalnum() else "_" for c in name)
+            ids[name] = f"{base}_{len(ids)}" if base in set(ids.values()) else base
+        return ids[name]
+
+    def label(text) -> str:
+        return str(text).replace('"', "#quot;")
+
+    print("graph LR")
+    for e in edges:
+        style = "-.->" if e["kind"] == "producer" else "-->"
+        print(f'  {node(e["from"])}["{label(e["from"])}"] '
+              f'{style}|"{e["calls"]} calls, avg {e["avg_ms"]} ms"| '
+              f'{node(e["to"])}["{label(e["to"])}"]')
+
+
+def _cmd_traces(args) -> None:
+    """The span files: the newest traces, one trace's tree or critical
+    path (assembled over every ``--db``), read-only SQL, the service map.
+    Exits 2 when no file exists."""
+    import datetime as dt
+    import sqlite3
+
+    from tasksrunner_torch.spans import (
+        _connect_ro, assemble_trace, critical_path, list_traces, service_map,
+    )
+
+    dbs = [p.strip() for p in (args.db or "").split(",") if p.strip()]
+    existing = [p for p in dbs if pathlib.Path(p).is_file()]
+    if not existing:
+        print(f"no trace database at {args.db or '(unset)'} "
+              "(services record to .tasksrunner/traces.db by default)", file=sys.stderr)
+        raise SystemExit(2)
+    db = existing[0]
+    if args.action == "list":
+        rows = list_traces(db, limit=args.limit)
+        if not rows:
+            print("no traces recorded")
+            return
+        for r in rows:
+            ts = dt.datetime.fromtimestamp(r["started"]).strftime("%H:%M:%S")
+            print(f"{r['trace_id'][:16]}  {ts}  {r['spans']:>3} spans  "
+                  f"{(r['wall'] or 0) * 1000:7.1f} ms  {r['root']}")
+    elif args.action == "show":
+        if not args.trace_id:
+            raise SystemExit("show needs a trace id (prefix ok)")
+        spans = assemble_trace(existing, args.trace_id)
+        if not spans:
+            raise SystemExit(f"no spans for trace {args.trace_id!r}")
+        t0 = spans[0]["start"]
+        by_id = {s["span_id"]: s for s in spans}
+
+        def depth(s, seen=()):
+            parent = s.get("parent_id")
+            if not parent or parent not in by_id or parent in seen:
+                return 0
+            return 1 + depth(by_id[parent], (*seen, s["span_id"]))
+
+        for s in spans:
+            print(f"{(s['start'] - t0) * 1000:8.1f}ms {s['duration'] * 1000:7.1f}ms  "
+                  f"{'  ' * depth(s)}[{s['role']}] {s['kind']:<8} {s['name']} "
+                  f"({s['status']}){_span_split(s)}")
+    elif args.action == "critical":
+        if not args.trace_id:
+            raise SystemExit("critical needs a trace id (prefix ok)")
+        spans = assemble_trace(existing, args.trace_id)
+        if not spans:
+            raise SystemExit(f"no spans for trace {args.trace_id!r}")
+        hops = critical_path(spans)
+        if not hops:
+            raise SystemExit(f"no rooted path in trace {args.trace_id!r}")
+        # the chain's wall time: an async tail may outlast the root span
+        total = max(h["start"] + h["duration"] for h in hops) - hops[0]["start"]
+        print(f"critical path: {len(hops)} hops over {len(spans)} spans, "
+              f"root {hops[0]['name']!r}, wall {total * 1000:.1f} ms")
+        t0 = hops[0]["start"]
+        for hop in hops:
+            split = ""
+            if "queue_wait" in hop:
+                split = (f"  (wait {hop['queue_wait'] * 1000:.1f}ms"
+                         f" / svc {hop.get('service', 0.0) * 1000:.1f}ms)")
+            print(f"{(hop['start'] - t0) * 1000:8.1f}ms self {hop['self_time'] * 1000:7.1f}ms  "
+                  f"[{hop['role']}] {hop['kind']:<8} {hop['name']}{split}")
+        accounted = sum(h["self_time"] for h in hops)
+        pct = (accounted / total * 100.0) if total > 0 else 100.0
+        print(f"blame accounted: {accounted * 1000:.1f} ms of {total * 1000:.1f} ms "
+              f"({pct:.0f}%)")
+    elif args.action == "query":
+        if not args.trace_id:
+            raise SystemExit(f"query needs SQL, e.g. {PROG} traces query "
+                             "\"SELECT role, COUNT(*) FROM spans GROUP BY role\"")
+        conn = _connect_ro(db)  # read-only: no query can change the spans
+        try:
+            cur = conn.execute(args.trace_id)
+            cols = [d[0] for d in cur.description or []]
+            rows = cur.fetchall()
+        except sqlite3.Error as exc:
+            raise SystemExit(f"query failed: {exc}")
+        finally:
+            conn.close()
+        if cols:
+            print("\t".join(cols))
+        for row in rows:
+            print("\t".join(f"{v:.3f}" if isinstance(v, float) else str(v) for v in row))
+    else:  # map
+        edges = service_map(db)
+        if not edges:
+            print("no client/producer spans recorded")
+        elif args.mermaid:
+            _mermaid_map(edges)
+        else:
+            for e in edges:
+                print(f"{e['from']:<36} --{e['kind']}--> {e['to']:<42} "
+                      f"{e['calls']:>5} calls  avg {e['avg_ms']} ms")
+
+
+def _cmd_flightrec(args) -> None:
+    """The flight recorder's dumps in ``--dir``, newest first, or one
+    dump (``--dump``) with its last ``--limit`` entries."""
+    import datetime as dt
+
+    from tasksrunner_torch import flightrec
+
+    if args.dump:
+        try:
+            payload = flightrec.read_dump(args.dump)
+        except (OSError, ValueError) as exc:
+            raise SystemExit(f"cannot read dump {args.dump!r}: {exc}")
+        ts = dt.datetime.fromtimestamp(payload.get("ts") or 0)
+        print(f"{payload.get('role')} pid {payload.get('pid')} — {payload.get('reason')} "
+              f"at {ts:%H:%M:%S}  detail={payload.get('detail')}")
+        gauges = payload.get("gauges") or {}
+        if gauges:
+            print("gauges at dump: " + "  ".join(f"{k}={v:.3f}"
+                                                 for k, v in sorted(gauges.items())))
+        for e in (payload.get("entries") or [])[-args.limit:]:
+            ets = dt.datetime.fromtimestamp(e.get("ts") or 0)
+            trace = (e.get("trace") or "")[:16] or "-"
+            print(f"{ets:%H:%M:%S}.{ets.microsecond // 1000:03d}  "
+                  f"{(e.get('dur') or 0) * 1000:7.1f}ms  ({e.get('status')}) {e.get('name')}"
+                  f"  trace {trace}" + (f"  gauges {e['gauges']}" if e.get("gauges") else ""))
+        return
+    rows = flightrec.list_dumps(args.dir)
+    if not rows:
+        print(f"no flight-recorder dumps in {args.dir} (dumps appear on shed entry, "
+              "slow exemplars, and unclean shutdown)")
+        return
+    for r in rows:
+        ts = dt.datetime.fromtimestamp(r.get("ts") or 0)
+        print(f"{ts:%H:%M:%S}  {r['reason']:<18} {r['role']} pid {r['pid']}  "
+              f"{r['entries']:>4} entries  {r['path']}")
+    print(f"# inspect one: {PROG} flightrec --dump {rows[0]['path']}")
+
+
+# -- dead letters ----------------------------------------------------------------
+
+def _print_dlq(action: str, get_entries, ops: dict, where: str, ids) -> None:
+    if action == "list":
+        entries = get_entries()
+        if not entries:
+            print(f"no dead letters on {where}")
+            return
+        print(f"{'ID':<36} {'ATTEMPTS':>8}  DATA")
+        for e in entries:
+            preview = json.dumps(e["data"])
+            if len(preview) > 60:
+                preview = preview[:57] + "..."
+            print(f"{e['id']:<36} {e['attempts']:>8}  {preview}")
+    elif action == "show":
+        print(json.dumps(get_entries(), indent=2, default=str))
+    else:  # requeue | purge
+        n = ops[action](ids or None)
+        print(f"{'requeued' if action == 'requeue' else 'purged'} {n} message(s) on {where}")
+
+
+def _cmd_dlq(args) -> None:
+    """The dead letters of a broker's consumer group (TOPIC, and
+    ``--group`` or ``--app-id``) or of a queue binding, read from their
+    files: listed, shown, requeued or purged."""
+    from tasksrunner_torch.component.loader import load_components
+    from tasksrunner_torch.errors import ComponentError
+
+    specs = load_components(args.resources)
+    spec = next((s for s in specs if s.name == args.component), None)
+    if spec is None:
+        known = ", ".join(sorted(s.name for s in specs)) or "(none)"
+        raise SystemExit(f"no component {args.component!r} in {args.resources}; found: {known}")
+    if spec.type.startswith("bindings."):
+        from tasksrunner_torch.bindings.localqueue import open_queue_for_inspection
+
+        try:
+            queue = open_queue_for_inspection(spec, args.base_dir)
+        except ComponentError as exc:
+            raise SystemExit(str(exc))
+        try:
+            _print_dlq(args.action, queue.dead_letter_detail,
+                       {"requeue": queue.requeue_dead_letters,
+                        "purge": queue.purge_dead_letters}, args.component, args.id)
+        finally:
+            queue.close()
+        return
+    if not args.topic:
+        raise SystemExit("pub/sub dlq needs a TOPIC")
+    group = args.group or args.app_id
+    if not group:
+        raise SystemExit("pass --group (the consumer group; by convention the subscriber's "
+                         "app-id)")
+    from tasksrunner_torch.pubsub.sqlite import open_for_inspection
+
+    try:
+        broker = open_for_inspection(spec, args.base_dir)
+    except ComponentError as exc:
+        raise SystemExit(str(exc))
+    try:
+        _print_dlq(args.action, lambda: broker.dead_letter_detail(args.topic, group),
+                   {"requeue": lambda ids: broker.requeue_dead_letters(args.topic, group,
+                                                                       msg_ids=ids),
+                    "purge": lambda ids: broker.purge_dead_letters(args.topic, group,
+                                                                   msg_ids=ids)},
+                   f"{args.topic}/{group}", args.id)
+    finally:
+        broker.close_sync()
+
+
+#: the verbs whose modules are not ported yet, with their ROADMAP items
+NOT_PORTED = {"repl": "A20", "shards": "A20", "actors": "A21", "workflows": "A21",
+              "chaos": "A23", "lint": "A27", "verify": "A27"}
+
+
+def _cmd_not_ported(args) -> None:
+    raise SystemExit(f"ERROR: {args.command} is not ported yet "
+                     f"(ROADMAP {NOT_PORTED[args.command]})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="python -m tasksrunner_torch",
+        prog=PROG,
         description="The PyTorch port's app host, app server, sidecar and orchestrator.")
     parser.add_argument("--log-level", default="info",
                         choices=["debug", "info", "warning", "error"])
@@ -593,14 +1146,110 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--app-id", required=True)
     p.add_argument("--registry-file", **registry)
     p.set_defaults(fn=_cmd_secret)
+
+    p = sub.add_parser("traces", help="inspect recorded traces (transaction search, span "
+                                      "tree, critical path, service map)")
+    p.add_argument("action", choices=["list", "show", "critical", "map", "query"])
+    p.add_argument("trace_id", nargs="?", default=None,
+                   help="trace id for `show`/`critical`; SQL for `query`")
+    p.add_argument("--db", default=".tasksrunner/traces.db",
+                   help="span DB path; comma-separate several to assemble one trace across "
+                        "replicas")
+    p.add_argument("--limit", type=int, default=20)
+    p.add_argument("--mermaid", action="store_true",
+                   help="emit the service map as a mermaid graph")
+    p.set_defaults(fn=_cmd_traces)
+
+    p = sub.add_parser("flightrec", help="inspect black-box flight-recorder dumps")
+    p.add_argument("--dir", default=".tasksrunner/flightrec",
+                   help="dump directory (TASKSRUNNER_FLIGHTREC_DIR)")
+    p.add_argument("--dump", default=None, help="render one dump file instead of listing")
+    p.add_argument("--limit", type=int, default=40,
+                   help="ring entries shown from the end of a dump")
+    p.set_defaults(fn=_cmd_flightrec)
+
+    p = sub.add_parser("components", help="validate a components directory")
+    p.add_argument("path")
+    p.add_argument("--app-id", default=None, help="show only components in this app's scope")
+    p.set_defaults(fn=_cmd_components)
+
+    p = sub.add_parser("invoke", help="call a method on a running app via its sidecar")
+    p.add_argument("app_id")
+    p.add_argument("method", help='route, e.g. "api/tasks?createdBy=a@x.com"')
+    p.add_argument("--verb", default="GET",
+                   choices=["GET", "POST", "PUT", "DELETE", "PATCH",
+                            "get", "post", "put", "delete", "patch"])
+    p.add_argument("--data", default=None, help="JSON body or @file")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_invoke)
+
+    p = sub.add_parser("publish", help="publish an event through a running app's sidecar")
+    p.add_argument("pubsub", help="pub/sub component name")
+    p.add_argument("topic")
+    p.add_argument("--app-id", required=True,
+                   help="whose sidecar to publish through (decides scope)")
+    p.add_argument("--data", default=None, help="JSON payload or @file")
+    p.add_argument("--count", type=int, default=1,
+                   help="flood N copies concurrently (a scale-out load test)")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_publish)
+
+    p = sub.add_parser("state", help="raw state-store probes via a running app's sidecar")
+    p.add_argument("action", choices=["get", "set", "delete", "query"])
+    p.add_argument("store", help="state component name, e.g. statestore")
+    p.add_argument("key", nargs="?", default=None)
+    p.add_argument("--app-id", required=True)
+    p.add_argument("--data", default=None,
+                   help="JSON value (set) or query document (query)")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_state)
+
+    p = sub.add_parser("metrics", help="an app's request/publish/delivery counters")
+    p.add_argument("app_id_pos", nargs="?", default=None, metavar="app_id")
+    p.add_argument("--app-id", dest="app_id", default=None)
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--percentiles", action="store_true",
+                   help="p50/p95/p99 latency per histogram series, merged across every "
+                        "replica of the app")
+    p.add_argument("--slow", default=None, metavar="NAME",
+                   help="trace exemplars behind the latency tail: slow observations of "
+                        "histograms matching NAME")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_metrics)
+
+    p = sub.add_parser("dlq", help="inspect / requeue / purge a pubsub consumer group's or a "
+                                   "queue binding's dead letters")
+    p.add_argument("action", choices=["list", "show", "requeue", "purge"])
+    p.add_argument("component", help="pubsub or queue-binding component name")
+    p.add_argument("topic", nargs="?", default=None, help="topic (pub/sub components only)")
+    p.add_argument("--group", default=None, help="consumer group (defaults to --app-id)")
+    p.add_argument("--app-id", default=None)
+    p.add_argument("--id", action="append",
+                   help="requeue or purge only these message ids (repeatable)")
+    p.add_argument("--resources", default="components",
+                   help="components directory holding the component's YAML")
+    p.add_argument("--base-dir", default=".",
+                   help="directory a relative brokerPath or queuePath resolves against (the "
+                        "run file's directory)")
+    p.set_defaults(fn=_cmd_dlq)
+
+    for name, item in NOT_PORTED.items():
+        p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+        p.set_defaults(fn=_cmd_not_ported)
     return parser
+
+
+#: the long-running commands: each configures its own role-tagged logging
+_SERVERS = ("host", "serve", "sidecar", "run")
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=getattr(logging, args.log_level.upper()),
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-                        stream=sys.stderr)
+    if args.command not in _SERVERS:
+        logging.basicConfig(level=getattr(logging, args.log_level.upper()),
+                            format="%(asctime)s %(name)s %(levelname)s %(message)s",
+                            stream=sys.stderr)
     if "device" in vars(args):  # the commands that run apps, not their clients
         from tasksrunner_torch.device import resolve_device  # torch: not for the clients
 
@@ -613,3 +1262,7 @@ def main(argv: list[str] | None = None) -> None:
         args.fn(args)
     except TasksRunnerError as exc:
         raise SystemExit(f"ERROR: {exc}") from exc
+    except BrokenPipeError:
+        # the reader of stdout went away (``... traces list | head``)
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        raise SystemExit(0) from None

@@ -12,7 +12,7 @@ import json
 import time
 from typing import Any
 
-from tasksrunner_torch.tracing import hex16
+from tasksrunner_torch.ids import hex16
 
 CONTENT_TYPE = "application/cloudevents+json"
 

@@ -6,10 +6,11 @@ default the JAX package declares for it, so one setting drives both
 packages. An undeclared ``TASKSRUNNER_*`` name is refused, as it is
 there. The runtime's ``TASKSRUNNER_TRACE_DB``,
 ``TASKSRUNNER_TRACE_RETENTION_SECONDS``,
-``TASKSRUNNER_SLOW_THRESHOLD_SECONDS``, ``TASKSRUNNER_HTTP_PORT`` and
+``TASKSRUNNER_SLOW_THRESHOLD_SECONDS``, ``TASKSRUNNER_FLIGHTREC_DIR``,
+``TASKSRUNNER_FLIGHTREC_RING``, ``TASKSRUNNER_HTTP_PORT`` and
 ``TASKSRUNNER_API_TOKEN`` are read with ``os.environ`` where they are
-used (``spans``, ``metrics``, ``client``, ``app``), as the JAX package
-reads them.
+used (``spans``, ``metrics``, ``flightrec``, ``client``, ``app``), as the
+JAX package reads them.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ DECLARED = frozenset({
     "TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",  # int, 512: write-queue depth at score 1.0
     "TASKSRUNNER_REPL_LEASE_SECONDS",  # float, 5: a lease's life (state/lease.py)
     "TASKSRUNNER_RESHARD",         # bool, off: on is refused, not ported yet (ROADMAP A20)
+    "TASKSRUNNER_FLIGHTREC",       # bool, on: the flight recorder (flightrec.py)
+    "TASKSRUNNER_FLIGHTREC_DIR",   # path, .tasksrunner/flightrec: where dumps go
+    "TASKSRUNNER_FLIGHTREC_RING",  # int, 256: request skeletons the ring keeps
+    "TASKSRUNNER_UVLOOP",          # bool, off: uvloop's loop policy where installed
+    "TASKSRUNNER_SLOW_THRESHOLD_SECONDS",  # float, 0.25: an exemplar at or above it
+    "TASKSRUNNER_TRACE_DB",        # path, .tasksrunner/traces.db; empty: no recording
 })
 
 

@@ -6,9 +6,10 @@ of several replicas' snapshots the orchestrator reads
 (:func:`merge_histogram_snapshots`, :func:`merge_flat_snapshots`,
 :func:`summarize_histograms`).
 
-Each batcher keeps its own registry (``GET /metrics``); :data:`metrics`
-is the process-wide one, which the admission controller writes
-(``admission_state``, ``admission_saturation``, ``admission_shed_total``).
+:data:`metrics` is the process-wide registry: the batcher (unless given
+another), the runtime, the sidecar and the admission controller write
+into it, and a sidecar serves it. Every literal name the port records is
+declared in :mod:`tasksrunner_torch.names`.
 
 A histogram keeps, per label set, its count, sum and largest value and
 the counts of the JAX package's fixed log2 buckets (:data:`DEFAULT_BOUNDS`,
@@ -20,8 +21,16 @@ keeps that trace's id as an *exemplar*: the newest :data:`MAX_EXEMPLARS`
 per series, ``[trace_id, value, unix time]`` each, so the slow tail of a
 histogram leads to its traces. :meth:`MetricsRegistry.observe` takes the
 ambient trace; ``observe_many(..., traces=[...])`` takes one trace id
-per value, for work that runs off the requests' tasks (a batch). The
-Prometheus exposition is not ported.
+per value, for work that runs off the requests' tasks (a batch). A
+slow observation that keeps an exemplar also calls the hook
+:func:`set_on_slow_exemplar` installed (the flight recorder's). Values
+wait in a per-series buffer and fold into the buckets in sorted runs of
+:data:`FOLD_AT`, and at every snapshot, as the JAX registry folds them,
+so a histogram's ``_sum`` is added in the same order and prints the
+same digits.
+
+:func:`render_prometheus` writes a registry as Prometheus text
+exposition 0.0.4, the sidecar's ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from bisect import bisect_left
+from bisect import bisect_right
 from typing import Any, Iterable
 
 from tasksrunner_torch.tracing import current_trace
@@ -41,6 +50,18 @@ ENV_SLOW_THRESHOLD = "TASKSRUNNER_SLOW_THRESHOLD_SECONDS"
 DEFAULT_SLOW_THRESHOLD = 0.25
 #: exemplars kept per series, the newest
 MAX_EXEMPLARS = 8
+#: a series folds its buffered values into its buckets at this many
+FOLD_AT = 512
+
+#: called as ``hook(metric, trace_id, value)`` for every exemplar kept;
+#: set by the flight recorder (:mod:`tasksrunner_torch.flightrec`)
+on_slow_exemplar = None
+
+
+def set_on_slow_exemplar(hook) -> None:
+    """Install (or, with None, clear) the slow-exemplar observer."""
+    global on_slow_exemplar
+    on_slow_exemplar = hook
 
 
 def _slow_threshold() -> float:
@@ -63,7 +84,7 @@ def _flat(name: str, labels: tuple[tuple[str, str], ...]) -> str:
 
 
 class _Series:
-    __slots__ = ("count", "sum", "max", "counts", "exemplars")
+    __slots__ = ("count", "sum", "max", "counts", "exemplars", "pending")
 
     def __init__(self) -> None:
         self.count = 0
@@ -72,6 +93,30 @@ class _Series:
         self.counts = [0] * (len(DEFAULT_BOUNDS) + 1)
         #: (trace_id, value, unix time), newest last
         self.exemplars: list[tuple[str, float, float]] = []
+        #: observations not yet in the buckets
+        self.pending: list[float] = []
+
+    def fold(self) -> None:
+        """The buffered values into the buckets, sorted, one bisect a
+        bound (the caller holds the registry's lock)."""
+        if not self.pending:
+            return
+        vals = sorted(self.pending)
+        self.pending = []
+        n = len(vals)
+        prev = 0
+        for i, bound in enumerate(DEFAULT_BOUNDS):
+            # bucket i holds bounds[i-1] < value <= bounds[i]
+            pos = bisect_right(vals, bound)
+            if pos != prev:
+                self.counts[i] += pos - prev
+                prev = pos
+            if pos == n:
+                break
+        if prev != n:
+            self.counts[len(DEFAULT_BOUNDS)] += n - prev
+        self.sum += sum(vals)
+        self.count += n
 
 
 class MetricsRegistry:
@@ -128,6 +173,7 @@ class MetricsRegistry:
         if not values:
             return
         key = _key(name, labels)
+        kept: list[tuple[str, float]] = []
         with self._lock:
             series = self._histograms.get(key)
             if series is None:
@@ -138,18 +184,29 @@ class MetricsRegistry:
                         if len(series.exemplars) >= MAX_EXEMPLARS:
                             del series.exemplars[0]
                         series.exemplars.append((trace_id, value, time.time()))
-            series.count += len(values)
-            series.sum += sum(values)
+                        kept.append((trace_id, value))
             series.max = max(series.max, max(values))
-            for value in values:
-                # bucket i holds bounds[i-1] < value <= bounds[i], as the
-                # JAX registry's fold (bisect_right of each bound) counts
-                series.counts[bisect_left(DEFAULT_BOUNDS, value)] += 1
+            series.pending.extend(values)
+            if len(series.pending) >= FOLD_AT:
+                series.fold()
+        hook = on_slow_exemplar
+        if hook is not None:
+            for trace_id, value in kept:
+                try:
+                    hook(name, trace_id, value)
+                except Exception:  # noqa: BLE001 - telemetry must not fail the caller
+                    pass
+
+    def _folded(self) -> None:
+        # the caller holds the lock
+        for series in self._histograms.values():
+            series.fold()
 
     def snapshot(self) -> dict[str, float]:
         """Flat ``name{label=value,...}`` → value; a histogram shows as
         ``name_count``, ``name_sum`` and ``name_max``."""
         with self._lock:
+            self._folded()
             out = {_flat(n, ls): v for (n, ls), v in self._counters.items()}
             out.update({_flat(n, ls): v for (n, ls), v in self._gauges.items()})
             for (n, ls), series in self._histograms.items():
@@ -181,6 +238,7 @@ class MetricsRegistry:
         bucket by bucket."""
         out: dict[str, dict[str, Any]] = {}
         with self._lock:
+            self._folded()
             for (name, labels), series in sorted(self._histograms.items()):
                 hist = out.setdefault(name, {"bounds": list(DEFAULT_BOUNDS), "series": []})
                 hist["series"].append({"labels": dict(labels), "counts": list(series.counts),
@@ -278,6 +336,71 @@ def estimate_percentile(bounds: list[float], counts: list[int], q: float) -> flo
             frac = (rank - prev_cum) / c
             return lo + (bounds[i] - lo) * frac
     return bounds[-1]
+
+
+def _prom_label_escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _prom_labels(labels: dict[str, str], extra: tuple[str, str] | None = None) -> str:
+    parts = [f'{k}="{_prom_label_escape(str(v))}"' for k, v in sorted(labels.items())]
+    if extra is not None:
+        parts.append(f'{extra[0]}="{_prom_label_escape(extra[1])}"')
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def _format_value(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def render_prometheus(registry: MetricsRegistry,
+                      help_texts: dict[str, str] | None = None) -> str:
+    """``registry`` as Prometheus text exposition 0.0.4
+    (tasksrunner/observability/metrics.py:525): ``# HELP`` and ``# TYPE``
+    once a name, the counters, then the gauges with ``uptime_seconds``,
+    then each histogram's cumulative ``_bucket{le=...}`` series ending at
+    ``+Inf``, its ``_sum`` and ``_count``; labels sorted and escaped. The
+    help texts are :data:`tasksrunner_torch.names.ALL`'s unless given."""
+    if help_texts is None:
+        from tasksrunner_torch.names import ALL as help_texts
+    lines: list[str] = []
+    with registry._lock:
+        counters = sorted(registry._counters.items())
+        gauges = sorted(registry._gauges.items())
+        uptime = time.time() - registry.started_at
+    gauges.append((("uptime_seconds", ()), uptime))
+    gauges.sort()
+
+    def scalar_block(items: list, prom_type: str) -> None:
+        last_name = None
+        for (name, label_items), value in items:
+            if name != last_name:
+                lines.append(f"# HELP {name} {help_texts.get(name, name)}")
+                lines.append(f"# TYPE {name} {prom_type}")
+                last_name = name
+            lines.append(f"{name}{_prom_labels(dict(label_items))} {_format_value(value)}")
+
+    scalar_block(counters, "counter")
+    scalar_block(gauges, "gauge")
+    for name, hist in sorted(registry.snapshot_histograms().items()):
+        lines.append(f"# HELP {name} {help_texts.get(name, name)}")
+        lines.append(f"# TYPE {name} histogram")
+        bounds = hist["bounds"]
+        for series in hist["series"]:
+            labels = series["labels"]
+            cum = 0
+            for i, bound in enumerate(bounds):
+                cum += series["counts"][i]
+                lines.append(
+                    f"{name}_bucket{_prom_labels(labels, ('le', repr(float(bound))))} {cum}")
+            cum += series["counts"][len(bounds)]
+            lines.append(f"{name}_bucket{_prom_labels(labels, ('le', '+Inf'))} {cum}")
+            lines.append(f"{name}_sum{_prom_labels(labels)} {repr(series['sum'])}")
+            lines.append(f"{name}_count{_prom_labels(labels)} {series['count']}")
+    lines.append("")
+    return "\n".join(lines)
 
 
 #: the process-wide registry

@@ -13,11 +13,16 @@ Routes, on 127.0.0.1 (``admin_port``, else a free port):
 * ``POST /admin/apps/{app}/scale`` (``{"min_replicas", "max_replicas"}``);
 * ``GET /admin/apps/{app}/metrics``: every replica sidecar's
   ``/v1.0/metadata`` merged: counters summed, gauges their largest,
-  histograms bucket by bucket, with p50/p95/p99 per series.
+  histograms bucket by bucket, with p50/p95/p99 per series;
+* ``GET /admin/traces/{trace_id}``: one trace assembled from every
+  replica of every app, each recording into its own span file: their
+  sidecars' ``/v1.0/traces/{id}`` gathered (5 s each; a replica that does
+  not answer is skipped) and merged by
+  :func:`~tasksrunner_torch.spans.assemble_trace`, as ``{"trace_id",
+  "replicas", "spans"}`` with ``replicas`` the sidecars that answered.
 
-``/admin/traces/{id}`` (the sidecars' ``/v1.0/traces``, ROADMAP A19),
-``/admin/actors`` (A21) and ``/admin/placement`` (A20) answer 501 "not
-ported yet". An unknown app is a 404 naming the running ones. When
+``/admin/actors`` (ROADMAP A21) and ``/admin/placement`` (A20) answer 501
+"not ported yet". An unknown app is a 404 naming the running ones. When
 ``TASKSRUNNER_API_TOKEN`` is set every request needs it in the
 ``tr-api-token`` header (401), the sidecars' header.
 
@@ -43,6 +48,7 @@ from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
 from tasksrunner_torch.metrics import (
     merge_flat_snapshots, merge_histogram_snapshots, summarize_histograms,
 )
+from tasksrunner_torch.spans import assemble_trace
 
 if typing.TYPE_CHECKING:  # run.py starts the AdminServer
     from tasksrunner_torch.orchestrator.run import Orchestrator
@@ -101,7 +107,7 @@ class AdminServer:
         add("POST", "/admin/apps/{app_id}/env", self._env)
         add("POST", "/admin/apps/{app_id}/scale", self._scale)
         add("GET", "/admin/apps/{app_id}/metrics", self._metrics)
-        add("GET", "/admin/traces/{trace_id}", _not_ported("A19"))
+        add("GET", "/admin/traces/{trace_id}", self._traces)
         add("GET", "/admin/actors", _not_ported("A21"))
         add("GET", "/admin/placement", _not_ported("A20"))
 
@@ -243,3 +249,30 @@ class AdminServer:
             "app_id": app_id, "replicas": len(payloads),
             "metrics": merge_flat_snapshots((p.get("metrics") or {} for p in payloads), kinds),
             "percentiles": summarize_histograms(merged), "histograms": merged})
+
+    async def _traces(self, req: Request) -> Response:
+        """One trace from every replica's span file, through its sidecar."""
+        trace_id = req.path_params["trace_id"]
+        token = os.environ.get(TOKEN_ENV)
+        headers = {TOKEN_HEADER: token} if token else {}
+        sources: list[list[dict]] = []
+        replicas = 0
+        for _, app_replicas in sorted(self.orch.replicas.items()):
+            for replica in app_replicas:
+                if not replica.ports:
+                    continue
+                try:
+                    status, _, body = await asyncio.wait_for(http_request(
+                        "127.0.0.1", replica.ports[1], "GET", f"/v1.0/traces/{trace_id}",
+                        headers=headers), 5)
+                    if status != 200:
+                        continue
+                    doc = json.loads(body)
+                except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError,
+                        ValueError):
+                    continue  # a dead replica must not fail the view
+                replicas += 1
+                if doc.get("spans"):
+                    sources.append(doc["spans"])
+        spans = await asyncio.to_thread(assemble_trace, sources, trace_id)
+        return Response(200, {"trace_id": trace_id, "replicas": replicas, "spans": spans})

@@ -19,7 +19,7 @@ from typing import Any, Awaitable, Callable
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.pubsub.base import Handler, Message, Nack
-from tasksrunner_torch.tracing import hex16
+from tasksrunner_torch.ids import hex16
 
 logger = logging.getLogger(__name__)
 

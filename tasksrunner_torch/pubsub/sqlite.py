@@ -24,7 +24,8 @@ delivery contract is :mod:`tasksrunner_torch.pubsub.base`'s:
   ``retry_delay`` (a :class:`~tasksrunner_torch.pubsub.base.Nack`'s
   ``retry_after`` instead); claiming charged an attempt, which a
   ``Nack(counts_attempt=False)`` refunds; a message that used up
-  ``max_attempts`` is dead-lettered (``broker_dlq_depth``).
+  ``max_attempts`` is dead-lettered (``broker_dlq_depth``); an operator
+  reads, requeues or purges a group's dead letters (the ``dlq`` verb).
 * **Janitor.** Every ``gc_interval`` seconds, messages settled in every
   group and older than ``gc_retention`` are dropped.
 
@@ -51,7 +52,7 @@ from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import ComponentError
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.pubsub.base import Handler, Message, Nack
-from tasksrunner_torch.tracing import hex16
+from tasksrunner_torch.ids import hex16
 
 logger = logging.getLogger(__name__)
 
@@ -416,6 +417,48 @@ class SqliteBroker:
             "SELECT msg_id FROM deliveries WHERE topic = ? AND grp = ? AND done = 2",
             (topic, group)).fetchall()
         return [r[0] for r in rows]
+
+    @_locked
+    def dead_letter_detail(self, topic: str, group: str) -> list[dict]:
+        """The group's dead letters, oldest first: id, attempts, data,
+        metadata and when each was published (the ``dlq`` verb's view)."""
+        rows = self._conn.execute(
+            "SELECT d.msg_id, d.attempts, m.data, m.metadata, m.created "
+            "FROM deliveries d JOIN messages m ON m.id = d.msg_id "
+            "WHERE d.topic = ? AND d.grp = ? AND d.done = 2 ORDER BY m.created",
+            (topic, group)).fetchall()
+        return [{"id": msg_id, "attempts": attempts, "data": json.loads(data),
+                 "metadata": json.loads(metadata), "created": created}
+                for msg_id, attempts, data, metadata, created in rows]
+
+    def _settle_dead_letters(self, sql: str, params: list, topic: str, group: str,
+                             msg_ids: list[str] | None) -> int:
+        # the caller holds _db_lock; msg_ids None is every dead letter
+        if msg_ids is not None:
+            if not msg_ids:
+                return 0
+            sql += f" AND msg_id IN ({', '.join('?' for _ in msg_ids)})"
+            params = params + list(msg_ids)
+        n = self._write_txn(lambda cur: cur.execute(sql, params)).rowcount
+        self._dlq_gauge(topic, group)
+        return n
+
+    @_locked
+    def requeue_dead_letters(self, topic: str, group: str,
+                             msg_ids: list[str] | None = None) -> int:
+        """Dead letters back to pending with a fresh attempt budget."""
+        return self._settle_dead_letters(
+            "UPDATE deliveries SET done = 0, attempts = 0, visible_at = ?, claimed_until = 0 "
+            "WHERE topic = ? AND grp = ? AND done = 2", [time.time(), topic, group],
+            topic, group, msg_ids)
+
+    @_locked
+    def purge_dead_letters(self, topic: str, group: str,
+                           msg_ids: list[str] | None = None) -> int:
+        """Dead letters discarded; their messages become collectable."""
+        return self._settle_dead_letters(
+            "DELETE FROM deliveries WHERE topic = ? AND grp = ? AND done = 2",
+            [topic, group], topic, group, msg_ids)
 
     @_locked
     def gc(self, *, older_than: float = 3600.0) -> int:

@@ -21,9 +21,12 @@
   has run. PyTorch runs eagerly and compiles nothing per shape, but the
   number still shows the bucket discipline: it equals the ladder's
   length after warm-up and stays there under any burst.
-* ``GET /metrics``: the batcher's ``ml_*`` metrics, flat; the app's
-  ``registry`` is the batcher's, whose ``snapshot_histograms()`` gives
-  the queue wait and service time per bucket.
+* ``GET /metrics``: the batcher's registry, flat: the process-wide one,
+  so the ``ml_*`` series sit beside the runtime's and a hosted replica's
+  sidecar serves them too (its ``/metrics`` text, ``/v1.0/metadata``);
+  the app's ``registry`` is that registry, whose
+  ``snapshot_histograms()`` gives the queue wait and service time per
+  bucket.
 
 After warm-up the batcher's ``saturation()`` is registered as the
 admission signal ``ml_tokens_in_flight`` (unregistered at shutdown), so

@@ -25,7 +25,14 @@
 * any method on ``/v1.0/invoke/{app_id}/method/{path}``: the caller's
   ``content-type``, ``accept`` and ``x-*`` headers go to the target, its
   reply comes back less the hop-by-hop headers;
-* ``GET /v1.0/healthz`` (204) and ``GET /v1.0/metadata``.
+* ``GET /v1.0/traces/{trace_id}``: this process's spans of the trace
+  (``{"spans": [...]}`` from its span file, the recorder's buffer flushed
+  first; ``{"spans": []}`` without a file), what the orchestrator's
+  ``/admin/traces/{id}`` gathers from every replica;
+* ``GET /v1.0/healthz`` (204), ``GET /v1.0/metadata`` and ``GET
+  /metrics``: the process-wide registry as Prometheus text 0.0.4
+  (``text/plain; version=0.0.4; charset=utf-8``), its token checked
+  here so the scrape is not timed into its own histogram.
 
 Every route but ``/v1.0/healthz`` needs the ``tr-api-token`` header when
 ``TASKSRUNNER_API_TOKEN`` is set (401); on the invoke route a peer app's
@@ -33,11 +40,14 @@ own token also passes, when its digest is in the token map of
 ``TASKSRUNNER_TOKENS_FILE`` (the orchestrator's ``per_app_tokens``), so
 another app's identity opens this app's methods and nothing else. A
 route is shed with 429 + ``Retry-After``
-while the admission controller sheds (``/v1.0/metadata`` never is), runs
-in the trace scope of the incoming ``traceparent`` (a new trace without
-one) and is timed into ``sidecar_request_latency_seconds{route}``. An
-error is answered with ``{"error": message}`` and the status its class
-maps to; malformed JSON is a 400.
+while the admission controller sheds (``/v1.0/metadata`` and
+``/v1.0/traces`` never are), runs in the trace scope of the incoming
+``traceparent`` (a new trace without one), is timed into
+``sidecar_request_latency_seconds{route}`` and noted in the flight
+recorder's ring (:mod:`tasksrunner_torch.flightrec`, started with the
+sidecar, marked clean when it stops). An error is answered with
+``{"error": message}`` and the status its class maps to; malformed JSON
+is a 400.
 
 A standalone sidecar runs the loop's lag probe and, with
 ``TASKSRUNNER_ADMISSION`` on, its own admission controller. Beside an
@@ -54,18 +64,22 @@ import os
 import time
 from urllib.parse import parse_qs, unquote
 
+from tasksrunner_torch import flightrec, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.app import App, Request, Response, Router, start_server
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
 from tasksrunner_torch.errors import TasksRunnerError, ValidationError
 from tasksrunner_torch.invoke.headers import inward_headers, outward_headers
-from tasksrunner_torch.metrics import metrics
+from tasksrunner_torch.metrics import metrics, render_prometheus
 from tasksrunner_torch.probes import EventLoopLagProbe
 from tasksrunner_torch.runtime import Runtime
 from tasksrunner_torch.security import hash_token, load_token_map
 from tasksrunner_torch.tracing import BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope
 
 logger = logging.getLogger(__name__)
+
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 def json_error(exc: Exception) -> Response:
@@ -112,6 +126,12 @@ class Sidecar:
         path, _, query = target.partition("?")
         if method == "GET" and path == "/v1.0/healthz":
             return Response(204)
+        if method == "GET" and path == "/metrics":
+            required = os.environ.get(TOKEN_ENV)
+            if required and headers.get(TOKEN_HEADER) != required:
+                return Response(401, {"error": "missing or bad api token"})
+            return Response(200, render_prometheus(metrics).encode(),
+                            headers={"Content-Type": PROMETHEUS_CONTENT_TYPE})
         found = self.router.find(method, path)
         if found is None:
             return Response(405 if self.router.known_path(path) else 404,
@@ -135,14 +155,22 @@ class Sidecar:
                             headers={"Retry-After": str(admission.retry_after_seconds())})
         ctx = ensure_trace(headers.get(TRACEPARENT_HEADER), headers.get(BAGGAGE_HEADER))
         started = time.perf_counter()
+        status = 500
         with trace_scope(ctx):
             try:
-                return await route.handler(request)
+                response = await route.handler(request)
+                status = response.status
+                return response
             except Exception as exc:  # noqa: BLE001 - mapped to a status
-                return json_error(exc)
+                response = json_error(exc)
+                status = response.status
+                return response
             finally:
-                metrics.observe("sidecar_request_latency_seconds",
-                                time.perf_counter() - started, route=label)
+                elapsed = time.perf_counter() - started
+                metrics.observe("sidecar_request_latency_seconds", elapsed, route=label)
+                # the black box's skeleton: one if and one deque append
+                flightrec.note_request(name=label, trace_id=ctx.trace_id, status=status,
+                                       duration=elapsed)
 
     # -- the routes ------------------------------------------------------
 
@@ -220,6 +248,17 @@ class Sidecar:
         async def metadata(req: Request) -> Response:
             return _json_reply(runtime.metadata())
 
+        async def get_trace(req: Request) -> Response:
+            rec = spans.recorder()
+            path = rec.path if rec is not None else os.environ.get(spans.ENV_VAR)
+            if not path or not os.path.exists(path):
+                return _json_reply({"spans": []})
+            if rec is not None:
+                await asyncio.to_thread(rec.flush)  # the buffered tail too
+            rows = await asyncio.to_thread(spans.trace_spans, path,
+                                           req.path_params["trace_id"])
+            return _json_reply({"spans": rows})
+
         add("POST", "/v1.0/state/{store}", save_state)
         add("GET", "/v1.0/state/{store}/{key}", get_state)
         add("DELETE", "/v1.0/state/{store}/{key}", delete_state)
@@ -234,6 +273,8 @@ class Sidecar:
         add("*", "/v1.0/invoke/{app_id}/method/{path:.*}", invoke, kind="peer")
         # never shed: an autoscaler reads its signals here under overload
         add("GET", "/v1.0/metadata", metadata, kind="exempt")
+        # an operator pulls a trace exactly when the replica is in trouble
+        add("GET", "/v1.0/traces/{trace_id}", get_trace, kind="exempt")
 
     # -- lifecycle -------------------------------------------------------
 
@@ -251,12 +292,15 @@ class Sidecar:
             self._lag_probe.start()
         if self._app is None and self.admission is not None:
             self.admission.start()
+        # on unless TASKSRUNNER_FLIGHTREC=0; stop() marks it clean
+        flightrec.configure_flightrec(self.runtime.app_id)
         logger.info("sidecar for %s listening on %s:%d", self.runtime.app_id, self.host,
                     self.port)
 
     async def stop(self) -> None:
         """Stop the subscriptions (a delivery in flight finishes, and may
         still call the routes), then the server."""
+        flightrec.mark_clean()
         if self._app is None and self.admission is not None:
             await self.admission.stop()
         if self._lag_probe is not None:

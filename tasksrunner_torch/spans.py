@@ -2,11 +2,14 @@
 the part of ``tasksrunner/observability/spans.py`` the scorer's lanes use.
 
 Recording is on only once :func:`configure_spans` has been given a path,
-or found one in ``TASKSRUNNER_TRACE_DB`` (the hosts call it at start).
-Rows go into the JAX package's schema, so its ``trace_spans`` and the
+or found one in ``TASKSRUNNER_TRACE_DB`` (the apps call it at start;
+``python -m tasksrunner_torch host``, ``serve``, ``sidecar`` and ``run``
+default it to ``.tasksrunner/traces.db``, and an empty value turns it
+off). Rows go into the JAX package's schema, so its ``trace_spans`` and the
 ``tasksrunner traces`` CLI read the port's spans unchanged, and the
 port's readers (:func:`list_traces`, :func:`trace_spans`,
-:func:`critical_path`) read the JAX package's. Appending is a list
+:func:`assemble_trace`, :func:`critical_path`, :func:`service_map`) read
+the JAX package's. Appending is a list
 append; a daemon thread flushes the buffer to sqlite every half second,
 off the event loop. Off, a span costs one ``if`` (:func:`active`, or the
 ``None`` test in :func:`record_span`).
@@ -96,11 +99,14 @@ class SpanRecorder:
                              kind, name, status, start, duration, attrs))
 
     def flush(self) -> None:
-        raw = self._buffer[:]
-        if not raw:
-            return
-        del self._buffer[:len(raw)]
+        """Write what was appended before this call. Under the lock, so a
+        flush returns only once a write in flight (the timer's) has landed
+        too: a reader after it finds the file's table made."""
         with self._io_lock:
+            raw = self._buffer[:]
+            if not raw:
+                return
+            del self._buffer[:len(raw)]
             if self._conn is None:
                 self._conn = sqlite3.connect(self.path, check_same_thread=False)
                 self._conn.execute("PRAGMA journal_mode=WAL")
@@ -224,6 +230,26 @@ def trace_spans(path: str, trace_id: str) -> list[dict]:
         conn.close()
 
 
+def assemble_trace(sources: list, trace_id: str) -> list[dict]:
+    """One trace's spans merged from several sources, each a span file's
+    path or a list of rows already fetched (a replica sidecar's
+    ``/v1.0/traces/{id}``): a span seen twice counts once (by
+    ``span_id``), and the rows come in start order. A file that is not a
+    span file yet is skipped."""
+    merged: dict[str, dict] = {}
+    for source in sources:
+        if isinstance(source, (str, pathlib.Path)):
+            try:
+                rows = trace_spans(str(source), trace_id)
+            except sqlite3.Error:
+                continue
+        else:
+            rows = [r for r in source if str(r.get("trace_id", "")).startswith(trace_id)]
+        for row in rows:
+            merged.setdefault(row["span_id"], dict(row))
+    return sorted(merged.values(), key=lambda r: r["start"])
+
+
 def critical_path(spans: list[dict]) -> list[dict]:
     """The blame chain of one trace's spans: from the earliest root, each
     hop descends into the child that ends last. Each hop reports its
@@ -268,3 +294,21 @@ def critical_path(spans: list[dict]) -> list[dict]:
         chain.append(hop)
         node = nxt
     return chain
+
+
+def service_map(path: str) -> list[dict]:
+    """The App-Map's edges: caller role → target, with the call count and
+    mean duration, from the client and producer spans; one edge a
+    (caller, kind, target), most calls first."""
+    conn = _connect_ro(path)
+    try:
+        rows = conn.execute(
+            "SELECT role, kind, "
+            "COALESCE(json_extract(attrs, '$.target'), name) AS target, "
+            "COUNT(*) AS n, AVG(duration) AS avg_duration "
+            "FROM spans WHERE kind IN ('client', 'producer') "
+            "GROUP BY role, kind, target ORDER BY n DESC").fetchall()
+        return [{"from": r["role"], "to": r["target"], "kind": r["kind"], "calls": r["n"],
+                 "avg_ms": round(r["avg_duration"] * 1000, 2)} for r in rows]
+    finally:
+        conn.close()

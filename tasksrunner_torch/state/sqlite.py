@@ -53,10 +53,11 @@ from tasksrunner_torch._sqlite import begin_immediate, checkpoint_loop, resolve_
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec, metadata_bool, metadata_int
 from tasksrunner_torch.errors import ComponentError, EtagMismatch, QueryError, StateError
+from tasksrunner_torch.ids import hex8
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
 from tasksrunner_torch.state.query import page_window, sort_clauses, validate_filter
-from tasksrunner_torch.tracing import current_trace, hex8
+from tasksrunner_torch.tracing import current_trace
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS state (

@@ -1,6 +1,6 @@
 """W3C trace context for the scorer's lanes: the part of
-``tasksrunner/observability/tracing.py`` and ``tasksrunner/ids.py`` the
-port uses.
+``tasksrunner/observability/tracing.py`` the port uses, its ids from
+:mod:`tasksrunner_torch.ids`.
 
 A ``traceparent`` header (``00-<32 hex trace>-<16 hex span>-<flags>``)
 arrives with a request or a delivered event; :func:`ensure_trace` adopts
@@ -15,9 +15,10 @@ bytes so the header cannot grow hop over hop.
 from __future__ import annotations
 
 import contextvars
-import secrets
 from dataclasses import dataclass, field
 from urllib.parse import quote, unquote
+
+from tasksrunner_torch.ids import hex8, hex16
 
 TRACEPARENT_HEADER = "traceparent"
 BAGGAGE_HEADER = "baggage"
@@ -26,16 +27,6 @@ BAGGAGE_HEADER = "baggage"
 #: on the way out (entries past it are dropped, oldest insertion kept)
 MAX_BAGGAGE_ITEMS = 16
 MAX_BAGGAGE_BYTES = 1024
-
-
-def hex8() -> str:
-    """16 hex chars (64 random bits): span-id sized."""
-    return secrets.token_hex(8)
-
-
-def hex16() -> str:
-    """32 hex chars (128 random bits): trace-id and message-id sized."""
-    return secrets.token_hex(16)
 
 
 @dataclass(slots=True, eq=False)

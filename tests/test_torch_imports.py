@@ -35,8 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                          capture_output=True, text=True, timeout=120).stdout
     loaded = out.split()
     # every module, the request path's observability, the sidecar, the
-    # orchestrator, resiliency, secrets, deploy, bindings and the query
-    # dialect among them
+    # orchestrator, resiliency, secrets, deploy, bindings, the query
+    # dialect and the operating plane's helpers among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
                  "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
@@ -52,7 +52,10 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                  "tasksrunner_torch.deploy.manifest", "tasksrunner_torch.deploy.plan",
                  "tasksrunner_torch.bindings.base", "tasksrunner_torch.bindings.localqueue",
                  "tasksrunner_torch.bindings.cron", "tasksrunner_torch.bindings.blobstore",
-                 "tasksrunner_torch.bindings.email", "tasksrunner_torch.state.query"):
+                 "tasksrunner_torch.bindings.email", "tasksrunner_torch.state.query",
+                 "tasksrunner_torch.ids", "tasksrunner_torch.names",
+                 "tasksrunner_torch.flightrec", "tasksrunner_torch.logconfig",
+                 "tasksrunner_torch.eventloop"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -9,8 +9,9 @@ by its own time limit:
   the cooldown, and SIGTERM stops every replica, each logging its kernel
   launch counts, and leaves the registry empty;
 * the admin verbs through the command line (``scale``, ``update``,
-  ``restart``, ``logs``, ``revisions``, ``ps``), the merged metrics, the
-  routes not ported yet, a second orchestrator fenced out, a standby that
+  ``restart``, ``logs``, ``revisions``, ``ps``), the merged metrics, a
+  trace no replica recorded, the routes not ported yet, a second
+  orchestrator fenced out, a standby that
   adopts the replica an abandoned orchestrator left running, and
   ``stop``, after which the adopted replica is respawned."""
 
@@ -256,8 +257,10 @@ async def test_admin_verbs_fencing_and_adoption(tmp_path, monkeypatch, capsys):
                 await _cli("scale", APP, "--min-replicas", "2", *verbs)
             with pytest.raises(SystemExit, match="returned 404: unknown app 'nope'"):
                 await _cli("revisions", "nope", *verbs)
-            for path, item in (("/admin/traces/abc", "A19"), ("/admin/actors", "A21"),
-                               ("/admin/placement", "A20")):
+            status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/traces/abc")
+            assert (status, json.loads(body)) == (
+                200, {"trace_id": "abc", "replicas": 1, "spans": []})
+            for path, item in (("/admin/actors", "A21"), ("/admin/placement", "A20")):
                 status, _, body = await http_request("127.0.0.1", port, "GET", path)
                 assert (status, json.loads(body)["error"]) == (
                     501, f"{path} is not ported yet (ROADMAP {item})")

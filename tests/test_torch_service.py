@@ -14,6 +14,7 @@ import torch
 from tasksrunner_torch import graft_entry, service
 from tasksrunner_torch.batching import BatcherConfig, MicroBatcher
 from tasksrunner_torch.errors import SaturatedError
+from tasksrunner_torch.metrics import MetricsRegistry
 
 
 def _recorder():
@@ -27,8 +28,10 @@ def _recorder():
 
 async def test_batcher_flushes_on_size_and_pads_to_the_bucket():
     run_batch, calls = _recorder()
+    # a registry of its own: the default is the process's, which other
+    # tests in this process write too
     batcher = MicroBatcher(run_batch, config=BatcherConfig(
-        max_batch=4, max_delay_ms=10_000, buckets=(1, 2, 4)))
+        max_batch=4, max_delay_ms=10_000, buckets=(1, 2, 4)), registry=MetricsRegistry())
     batcher.start()
     try:
         results = await asyncio.wait_for(
@@ -106,7 +109,7 @@ async def test_batcher_sheds_at_max_queue():
         return items
 
     batcher = MicroBatcher(run_batch, config=BatcherConfig(
-        max_batch=1, max_delay_ms=0, buckets=(1,), max_queue=2))
+        max_batch=1, max_delay_ms=0, buckets=(1,), max_queue=2), registry=MetricsRegistry())
     batcher.start()
     try:
         running = asyncio.ensure_future(batcher.submit(0))
@@ -166,6 +169,8 @@ async def test_scorer_serves_over_http_on_the_cpu(monkeypatch):
         buckets = stats["buckets"]
         assert stats["ready"] and stats["jit_cache_size"] == len(buckets)
 
+        # the scorer's series are in the process's registry: count this app's batches
+        before = json.loads((await _call(port, "GET", "/metrics"))[2])
         bodies = [json.dumps({"taskId": f"t-{i}", "taskName": f"task {i} urgent",
                               "taskAssignedTo": "ops"}).encode() for i in range(24)]
         replies = await asyncio.gather(*(
@@ -187,7 +192,7 @@ async def test_scorer_serves_over_http_on_the_cpu(monkeypatch):
         assert stats["completed"] == 24
         assert stats["jit_cache_size"] == len(buckets)  # flat after the burst
         metrics = json.loads((await _call(port, "GET", "/metrics"))[2])
-        assert sum(v for k, v in metrics.items()
+        assert sum(v - before.get(k, 0) for k, v in metrics.items()
                    if k.startswith("ml_batches_total")) == sum(stats["batches"].values())
     finally:
         warmup_gate.set()
