@@ -161,6 +161,30 @@ exit, traceback) at the first phase that does not hold:
    SIGTERM, no ``unclean-shutdown`` dump, each clean stop's B1 launches
    equal to its ``/ml/stats``. Prints the admin call's ms, the two-hop
    calls', the chains, the dumps and the card's memory;
+8g. placement: ``python -m tasksrunner_torch run`` with
+   ``TASKSRUNNER_RESHARD=1`` over one scorer replica whose ``scores`` store
+   (the sample's file) is ``state.sqlite`` on 4 shards with a fixed
+   ``hashSeed``: a burst of 256 saved-task events (published by a runtime
+   in this process) and 16 ``/score`` calls through the replica's sidecar;
+   every event's key in the ``scores-shardN.db`` file ``ShardRouter``
+   names and in no other, no shard empty; 8 reads with the placement-epoch
+   header at epoch 1 answered 200 and at epoch 0 answered 409 with the
+   header at 1, ``placement_stale_routes_total`` 8; a transaction over
+   keys on two shards commits both, the same with one stale etag is a 409
+   that changes neither; one paged query (50 a page) returns every key
+   once; ``/admin/placement`` and ``python -m tasksrunner_torch shards``
+   show the store at epoch 1 on 4 shards, every shard's rate above 0 and
+   the plan field, from a sweep after the burst; SIGTERM, the replica's
+   B1 launches equal to its ``expected_serve_launches``, the stored scores
+   within 2e-2 of the scorer's in this process. Then, in this process, a
+   4-shard store of 1024 scores that the model computes on the card is
+   split to 5 while a writer goes on scoring and storing: every
+   acknowledged write reads back, epoch 2, the moved share of the 1024
+   keys within 0.12–0.28, each key on the one shard its router names,
+   the flip's pause within ``TASKSRUNNER_RESHARD_PAUSE_BUDGET_SECONDS``
+   (2 s), and the writer's B1 launches ``n_layers`` a batch. Prints the
+   events/s, the stale 409s, the transaction's ms, the query's ms a page,
+   the ranking, the verb's lines and the split's numbers;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -236,11 +260,16 @@ from tasksrunner_torch import (  # noqa: E402
 )
 from tasksrunner_torch.app import App  # noqa: E402
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request  # noqa: E402
+from tasksrunner_torch.component.loader import load_components  # noqa: E402
+from tasksrunner_torch.component.registry import ComponentRegistry  # noqa: E402
 from tasksrunner_torch.hosting import InProcHost  # noqa: E402
 from tasksrunner_torch.metrics import metrics  # noqa: E402
 from tasksrunner_torch.probes import LAG_GAUGE  # noqa: E402
 from tasksrunner_torch.pubsub import InMemoryBroker  # noqa: E402
-from tasksrunner_torch.state import InMemoryStateStore  # noqa: E402
+from tasksrunner_torch.runtime import Runtime  # noqa: E402
+from tasksrunner_torch.state import InMemoryStateStore, placement  # noqa: E402
+from tasksrunner_torch.state.sharding import ShardRouter  # noqa: E402
+from tasksrunner_torch.state.sqlite import build_sharded_store  # noqa: E402
 from tasksrunner_torch.mesh import Mesh  # noqa: E402
 from tasksrunner_torch.model import ModelConfig, forward, init_params  # noqa: E402
 
@@ -3134,6 +3163,320 @@ def phase_observability(smi: str) -> int:
     return launched
 
 
+PLACE_SHARDS, PLACE_SEED = 4, "chip-smoke-placement"
+PLACE_EVENTS, PLACE_CALLS, PLACE_READS = 256, 16, 8
+SPLIT_KEYS, SPLIT_BATCH = 1024, 32
+
+
+def _placement_files(data: Path) -> Path:
+    """The sample's store file as ``scores`` on 4 shards with a fixed
+    ``hashSeed``, the broker file, and a run file of one scorer replica."""
+    comps, registry = data / "components", data / "apps.json"
+    _write_components(comps, data)
+    store = comps / "statestore.yaml"
+    store.write_text(store.read_text().replace(
+        "scopes:", f'  - name: shards\n    value: "{PLACE_SHARDS}"\n'
+                   f"  - name: hashSeed\n    value: {PLACE_SEED}\nscopes:"))
+    run_file = data / "run.yaml"
+    run_file.write_text(
+        f"resources_path: {comps}\nregistry_file: {registry}\napps:\n"
+        f"  - app_id: {APP_ID}\n    module: tasksrunner_torch.service:make_app\n"
+        "    health: { interval_seconds: 1 }\n")
+    return run_file
+
+
+def _scores(probs: np.ndarray) -> list[dict]:
+    return [{"priority": service.PRIORITY_LABELS[int(row.argmax())],
+             "confidence": float(row.max())} for row in probs]
+
+
+async def _online_split(data: Path) -> dict:
+    """A 4-shard store of this process split to 5 while a writer stores
+    scores the model computes on the card: returns the split's numbers and
+    the model's batches (each one forward, ``n_layers`` B1 launches)."""
+    device = torch.device("cuda", 0)
+    params = init_params(SERVED, 0, device)
+    store = build_sharded_store("scores", data / "split" / "scores.db", shards=PLACE_SHARDS,
+                                hash_seed=PLACE_SEED)
+    acked: dict[str, dict] = {}
+    batches = [0]
+
+    async def score_and_store(prefix: str) -> None:
+        tasks = [_saved_task(prefix, len(acked) + i) for i in range(SPLIT_BATCH)]
+        tokens = np.stack([service.task_tokens(t, SERVED) for t in tasks])
+        probs = await asyncio.to_thread(service.batch_probs, [params], [device], tokens,
+                                        cfg=SERVED)
+        batches[0] += 1
+        values = dict(zip((t["taskId"] for t in tasks), _scores(probs)))
+        await asyncio.gather(*(store.set(k, v) for k, v in values.items()))
+        acked.update(values)
+
+    stop = asyncio.Event()
+
+    async def writer() -> None:
+        while not stop.is_set():
+            await score_and_store("split-live")
+
+    try:
+        while len(acked) < SPLIT_KEYS:
+            await score_and_store("split")
+        before = {k: store.router.shard_of(k) for k in await store.keys()}
+        live = asyncio.create_task(writer())
+        await asyncio.sleep(0.2)
+        split_t = time.monotonic()
+        result = await store.split_shard()
+        split_s = time.monotonic() - split_t
+        await asyncio.sleep(0.2)
+        stop.set()
+        await live
+        items = await store.bulk_get(list(acked))
+        lost = [k for k, item in zip(acked, items) if item is None or item.value != acked[k]]
+        check(not lost, f"{len(lost)} acknowledged writes lost in the split: {lost[:5]}")
+        check(result["epoch"] == store.placement.epoch == 2 and result["shards"] == 5,
+              f"the split's result {result}")
+        moved = sum(store.router.shard_of(k) != s for k, s in before.items()) / len(before)
+        check(len(before) >= 1000 and 0.12 <= moved <= 0.28,
+              f"moved share {moved} of {len(before)} keys")
+        held = [await store._shards[i].keys() for i in range(store.shard_count)]
+        every = await store.keys()
+        check(sorted(k for ks in held for k in ks) == every and len(every) == len(set(every))
+              and all(store.router.shard_of(k) == i for i, ks in enumerate(held) for k in ks),
+              "a key on no shard, on two, or on one its router does not name")
+        budget = placement.pause_budget_default()
+        check(result["pause_seconds"] <= budget,
+              f"the flip paused writes {result['pause_seconds']} s, budget {budget} s")
+        return {"keys_before": len(before), "keys_after": len(every),
+                "written_during_split": len(acked) - SPLIT_KEYS, "moved_share": moved,
+                "keys_moved": result["keys_moved"], "split_s": split_s, "epoch": result["epoch"],
+                "pause_s": result["pause_seconds"], "pause_budget_s": budget,
+                "per_shard": [len(ks) for ks in held], "batches": batches[0]}
+    finally:
+        stop.set()
+        await asyncio.to_thread(store.close)
+
+
+async def _placement_phase(data: Path) -> dict:
+    """The phase's run, on the card."""
+    run_file = _placement_files(data)
+    comps, registry = data / "components", data / "apps.json"
+    env = {**os.environ, "TASKSRUNNER_RESHARD": "1"}
+    baseline = len(_card_apps()[0])
+    orch = _Orchestrated(run_file, data, None, env=env)
+    publisher = Runtime("some-api", ComponentRegistry(load_components(comps, app_id="some-api"),
+                                                      app_id="some-api"))
+    phase_t = time.monotonic()
+    router = ShardRouter(PLACE_SHARDS, PLACE_SEED)
+    shard_files = [data / f"scores-shard{i}.db" for i in range(PLACE_SHARDS)]
+    epoch_header = placement.PLACEMENT_EPOCH_HEADER
+
+    def held() -> list[list[str]]:
+        keys = []
+        for path in shard_files:
+            try:
+                keys.append(_store_keys(path) if path.exists() else [])
+            except sqlite3.Error:  # made, its table not yet
+                keys.append([])
+        return keys
+
+    try:
+        async def stats(app_port: int) -> dict:
+            status, _, body = await _http(app_port, "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats answered {status}")
+            return json.loads(body)
+
+        # 1. one scorer replica, ready
+        await _until(lambda: orch.ready(0), 600, "the scorer never printed its ready line")
+        ready_t, fields = orch.ready(0)[0]
+        app_port, sidecar = int(fields["app_port"]), int(fields["sidecar_port"])
+        while not (await stats(app_port))["ready"]:
+            await asyncio.sleep(0.05)
+        orch.admin_url = json.loads((data / "orchestrator.json").read_text())["admin_url"]
+
+        # 2. a burst of saved-task events and /score calls through the sidecar
+        tasks = [_saved_task("pl", i) for i in range(PLACE_EVENTS)]
+        burst_t = time.monotonic()
+        calls = await asyncio.gather(
+            *(publisher.publish(PUBSUB, TOPIC, t) for t in tasks),
+            *(_http(sidecar, "POST", f"/v1.0/invoke/{APP_ID}/method/score",
+                    json.dumps(t).encode()) for t in tasks[:PLACE_CALLS]))
+        check([c[0] for c in calls[PLACE_EVENTS:]] == [200] * PLACE_CALLS,
+              f"/score statuses {[c[0] for c in calls[PLACE_EVENTS:]]}")
+        deadline = time.monotonic() + 120
+        while (landed := sum(map(len, held()))) < PLACE_EVENTS:
+            check(time.monotonic() < deadline, f"{landed} of {PLACE_EVENTS} events stored")
+            await asyncio.sleep(0.02)
+        stored_s = time.monotonic() - burst_t
+        burst_wall = time.time()
+
+        # 3. each key in the one shard file its router names, no shard empty
+        per_shard = held()
+        check(sorted(k for ks in per_shard for k in ks)
+              == sorted(f"{APP_ID}||{t['taskId']}" for t in tasks),
+              "the shard files do not hold each event's key once")
+        check(all(per_shard) and all(router.shard_of(k) == i for i, ks in enumerate(per_shard)
+                                     for k in ks), f"keys per shard {list(map(len, per_shard))}")
+
+        # 4. reads at the live epoch pass; at a stale one, 409 with the live one
+        for epoch, want in (("1", 200), ("0", 409)):
+            for t in tasks[:PLACE_READS]:
+                status, headers, _ = await _http(sidecar, "GET",
+                                                 f"/v1.0/state/scores/{t['taskId']}",
+                                                 headers={epoch_header: epoch})
+                check(status == want and (want == 200 or headers.get(epoch_header) == "1"),
+                      f"epoch {epoch}: {status} {headers}")
+        status, _, body = await _http(sidecar, "GET", "/v1.0/metadata")
+        stale = json.loads(body)["metrics"].get("placement_stale_routes_total{store=scores}")
+        check(stale == PLACE_READS, f"placement_stale_routes_total {stale}")
+
+        # 5. a transaction over two shards commits both; with one stale etag,
+        # 409 and neither key changes
+        ids = [f"txn-{i}" for i in range(64)]
+        by_shard = {}
+        for i in ids:
+            by_shard.setdefault(router.shard_of(f"{APP_ID}||{i}"), i)
+        ka, kb = by_shard[min(by_shard)], by_shard[max(by_shard)]
+
+        async def transact(value: int, etag: str | None = None) -> int:
+            ops = [{"operation": "upsert", "request": {"key": k, "value": {"n": value},
+                                                       **({"etag": etag} if k == kb and etag
+                                                          else {})}} for k in (ka, kb)]
+            return (await _http(sidecar, "POST", "/v1.0/state/scores/transaction",
+                                json.dumps({"operations": ops}).encode()))[0]
+
+        async def read(key: str) -> tuple:
+            status, headers, body = await _http(sidecar, "GET", f"/v1.0/state/scores/{key}")
+            return status, json.loads(body), headers.get("etag")
+
+        txn_t = time.monotonic()
+        check(await transact(1) == 204, "the cross-shard transaction was refused")
+        txn_ms = (time.monotonic() - txn_t) * 1000
+        committed = [await read(k) for k in (ka, kb)]
+        check([c[:2] for c in committed] == [(200, {"n": 1})] * 2, f"committed {committed}")
+        check(await transact(2, etag="1") == 409, "a stale etag did not refuse the transaction")
+        check([await read(k) for k in (ka, kb)] == committed, "a refused transaction wrote")
+
+        # 6. one paged query over the four shards: every key once
+        page_s, seen, token = [], [], None
+        while True:
+            page = {"limit": 50, **({"token": token} if token else {})}
+            started = time.monotonic()
+            status, _, body = await _http(sidecar, "POST", "/v1.0/state/scores/query",
+                                          json.dumps({"page": page}).encode())
+            page_s.append(time.monotonic() - started)
+            check(status == 200, f"the query answered {status}")
+            doc = json.loads(body)
+            seen += [r["key"] for r in doc["results"]]
+            token = doc.get("token")
+            if not token:
+                break
+        check(sorted(seen) == sorted([t["taskId"] for t in tasks] + [ka, kb]),
+              f"the query's {len(seen)} keys are not every key once")
+
+        # 7. the placement loop's view, once it has swept after the burst
+        deadline = time.monotonic() + 30
+        while True:
+            doc = await orch.admin("GET", "/placement")
+            app_doc = doc["apps"].get(APP_ID) or {}
+            if (app_doc.get("last_sweep") or 0) > burst_wall:
+                break
+            check(time.monotonic() < deadline, f"no placement sweep after the burst: {doc}")
+            await asyncio.sleep(0.25)
+        entry = app_doc["stores"]["scores"]
+        check(doc["reshard"] is True and entry["epoch"] == 1 and entry["shards"] == PLACE_SHARDS
+              and sorted(r["shard"] for r in entry["ranking"]) == list(range(PLACE_SHARDS))
+              and all(r["rate"] > 0 for r in entry["ranking"]) and "plan" in entry,
+              f"/admin/placement {entry}")
+        shards_out, verb_s = _verb_run(env, "shards", "--registry-file", str(registry))
+        lines = shards_out.splitlines()
+        check(lines[0] == f"{APP_ID}/scores: epoch 1, {PLACE_SHARDS} shards, 1 replica(s) "
+                          "reporting" and len([x for x in lines if x.startswith("  shard ")])
+              == PLACE_SHARDS, f"shards printed {shards_out}")
+
+        # 8. SIGTERM: the replica's clean stop logs its launches
+        last_stats = await stats(app_port)
+        pid = (await orch.replicas())[0]["pid"]
+        rc = orch.stop()
+        check(rc == 0, f"the orchestrator exited {rc}: "
+                       f"{(data / 'orchestrator.log').read_text()[-3000:]}")
+        after = _check_on_card([], "after the stop", baseline)
+        check(json.loads(registry.read_text()) == {}, "entries left in the registry")
+        counted = {}
+        for _, line in orch.out.find(f" kernel launches app={APP_ID} pid="):
+            line_pid, launches = line.split(" pid=", 1)[1].split(" ", 1)
+            counted[int(line_pid)] = json.loads(launches)
+        expected = expected_serve_launches(last_stats, torch.cuda.device_count())
+        check(list(counted) == [pid] and counted[pid]["flash_fwd"] == expected,
+              f"B1 launches {counted} != expected {expected} for pid {pid}")
+        check(all(v == 0 for k, v in counted[pid].items() if k != "flash_fwd"),
+              f"the replica launched a backward or ring kernel: {counted}")
+
+        # 9. an online split in this process, a writer scoring on the card
+        reset_counts()
+        split = await _online_split(data)
+        split_launches = counts()["flash_fwd"]
+        check(split_launches == SERVED.n_layers * split["batches"],
+              f"the split's writer launched B1 {split_launches} times, not "
+              f"{SERVED.n_layers} × {split['batches']}")
+
+        # the stored scores against the scorer's math in this process
+        stored = {}
+        for path in shard_files:
+            with contextlib.closing(sqlite3.connect(path)) as conn:
+                stored.update((k.split("||", 1)[1], json.loads(v))
+                              for k, v in conn.execute("SELECT key, value FROM state"))
+        device = torch.device("cuda", 0)
+        probs = service.batch_probs(
+            [init_params(SERVED, 0, device)], [device],
+            np.stack([service.task_tokens(t, SERVED) for t in tasks]), cfg=SERVED)
+        worst = 0.0
+        for row, t in zip(probs, tasks):
+            got = stored[t["taskId"]]
+            label = service.PRIORITY_LABELS.index(got["priority"])
+            check(row[label] >= row.max() - SCORE_TOL,
+                  f"{t['taskId']}: stored {got} but the scorer gives {row.tolist()}")
+            worst = max(worst, abs(float(row[label]) - got["confidence"]))
+        check(worst <= SCORE_TOL, f"stored confidence off by {worst}")
+        return {"spawn_to_ready_s": ready_t - orch.spawned(0)[0][0],
+                "events": PLACE_EVENTS, "stored_s": stored_s,
+                "events_per_s": PLACE_EVENTS / stored_s,
+                "keys_per_shard": [len(ks) for ks in per_shard], "stale_409s": stale,
+                "transaction_ms": txn_ms, "query_pages": len(page_s),
+                "query_ms_per_page": _p50_max_ms(page_s),
+                "placement": {"ranking": entry["ranking"], "plan": entry["plan"]},
+                "shards_verb_s": verb_s, "shards_verb": lines, "split": split,
+                "split_flash_launches": split_launches, "worst_confidence_err": worst,
+                "after_stop": after, "launches": {str(pid): counted[pid]["flash_fwd"]},
+                "expected_launches": {str(pid): expected}}
+    except BaseException:
+        for t, line in sorted(orch.err.lines + [x for x in orch.out.lines if any(
+                w in x[1] for w in (" ready ", "WARNING", "ERROR", "Traceback", "Error"))]
+                )[-80:]:
+            print(f"{t - phase_t:9.3f} {line}", file=sys.stderr)
+        raise
+    finally:
+        await publisher.registry.close()
+        orch.kill()
+        for entries in (json.loads(registry.read_text()).values() if registry.exists() else []):
+            for entry in entries:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(entry["pid"], signal.SIGKILL)  # replicas a failed run left behind
+
+
+def phase_placement(smi: str) -> int:
+    """The scorer's ``scores`` store on four shards behind its sidecar under
+    ``python -m tasksrunner_torch run`` with the placement loop, then an
+    online split in this process: returns B1's launches in the replica and
+    in the split's writer."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-placement-") as data:
+        result = asyncio.run(_placement_phase(Path(data)))
+    launched = sum(result["launches"].values()) + result["split_flash_launches"]
+    emit({"phase": "placement", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started, "flash_launches": launched})
+    check(launched > 0, "the placement phase launched no flash kernel")
+    return launched
+
+
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
               mesh: Mesh | None = None):
     """One train step from a copy of ``params``: (new params, loss)."""
@@ -3714,7 +4057,7 @@ def main() -> int:
     launches = {"flash_fwd": clocked(phase_serve) + clocked(phase_runtime, smi)
                 + clocked(phase_sidecar, smi) + clocked(phase_orchestrator, smi)
                 + clocked(phase_deploy, smi) + clocked(phase_bindings, smi)
-                + clocked(phase_observability, smi)}
+                + clocked(phase_observability, smi) + clocked(phase_placement, smi)}
     trained = clocked(phase_train)
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = clocked(phase_sequence_parallel)

@@ -15,6 +15,8 @@
 * ``restart``, ``logs``, ``scale``, ``update``, ``revisions APP_ID``: the
   running orchestrator's admin API, found through ``orchestrator.json``
   beside ``--registry-file``;
+* ``shards``: each sharded store's routing epoch, shard ranking,
+  migration and rebalance plan from the orchestrator's ``/admin/placement``;
 * ``ps`` and ``stop APP_ID``: the registry file's replicas probed, or
   sent SIGTERM;
 * ``deploy validate|what-if|apply|down MANIFEST``: an environment
@@ -38,9 +40,9 @@
 * ``dlq list|show|requeue|purge COMPONENT [TOPIC]``: the dead letters of
   a broker's consumer group or of a queue binding.
 
-``repl``, ``shards``, ``actors``, ``workflows``, ``chaos``, ``lint`` and
-``verify`` are refused: their modules are not ported yet (ROADMAP A20,
-A21, A23, A27). The printed lines and exit codes are the JAX verbs'.
+``repl``, ``actors``, ``workflows``, ``chaos``, ``lint`` and ``verify`` are
+refused: their modules are not ported yet (ROADMAP A20b, A21, A23, A27).
+The printed lines and exit codes are the JAX verbs'.
 
 ``host`` and ``sidecar`` apply the ``kind: Resiliency`` documents of
 ``--components`` to the app's runtime. ``host``, ``serve``, ``sidecar``
@@ -74,9 +76,8 @@ import pathlib
 import signal
 import sys
 import time
-import urllib.error
-import urllib.request
 from typing import Awaitable, Callable
+from urllib.parse import urlsplit
 
 from tasksrunner_torch.app import App
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, AppClient, http_request
@@ -309,7 +310,8 @@ def _admin_request(registry_file: str, method: str, path: str,
         raise SystemExit(f"no orchestrator control file at {info_file}: is "
                          "`python -m tasksrunner_torch run` running with this registry_file?")
     try:
-        url = json.loads(info_file.read_text())["admin_url"] + path
+        admin_url = json.loads(info_file.read_text())["admin_url"]
+        url = admin_url + path
     except (ValueError, KeyError, TypeError):
         info_file.unlink(missing_ok=True)
         raise SystemExit(f"orchestrator control file {info_file} was unreadable (left by a "
@@ -318,27 +320,27 @@ def _admin_request(registry_file: str, method: str, path: str,
     headers = {"content-type": "application/json"}
     if os.environ.get(TOKEN_ENV):
         headers[TOKEN_HEADER] = os.environ[TOKEN_ENV]
-    req = urllib.request.Request(url, method=method, headers=headers,
-                                 data=json.dumps(body).encode() if body is not None else None)
+    target = urlsplit(admin_url)
     # a rolling restart takes up to ~40 s a replica before the answer
     timeout = 300
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return json.loads(resp.read() or b"{}")
-    except urllib.error.HTTPError as exc:
-        detail = exc.read().decode("utf-8", "replace")
+        status, _, raw = asyncio.run(asyncio.wait_for(http_request(
+            target.hostname, target.port, method, path, headers=headers,
+            body=json.dumps(body).encode() if body is not None else b""), timeout))
+    except TimeoutError:
+        raise SystemExit(f"orchestrator did not answer within {timeout}s: the operation "
+                         "may still be running; check `revisions`") from None
+    except (OSError, asyncio.IncompleteReadError) as exc:
+        raise SystemExit(f"cannot reach orchestrator at {url}: {exc} (a stale "
+                         "orchestrator.json after a crash?)") from None
+    if status >= 400:
+        detail = raw.decode("utf-8", "replace")
         try:
             detail = json.loads(detail).get("error", detail)
         except (ValueError, AttributeError):
             pass
-        raise SystemExit(f"orchestrator returned {exc.code}: {detail}") from None
-    except OSError as exc:  # a connect-phase timeout comes as URLError(TimeoutError)
-        if isinstance(exc, TimeoutError) or isinstance(getattr(exc, "reason", None),
-                                                       TimeoutError):
-            raise SystemExit(f"orchestrator did not answer within {timeout}s: the operation "
-                             "may still be running; check `revisions`") from None
-        raise SystemExit(f"cannot reach orchestrator at {url}: {exc} (a stale "
-                         "orchestrator.json after a crash?)") from None
+        raise SystemExit(f"orchestrator returned {status}: {detail}")
+    return json.loads(raw or b"{}")
 
 
 def _cmd_restart(args) -> None:
@@ -379,6 +381,45 @@ def _cmd_update(args) -> None:
                          {"set": set_env, "remove": remove}).get("revision", {})
     print(f"updated {args.app_id} env (revision {rev.get('revision')}): "
           f"set={sorted(set_env) or '-'} removed={remove or '-'}")
+
+
+def _cmd_shards(args) -> None:
+    """Each sharded store's epoch, shard ranking, migration in flight and
+    rebalance plan, from the orchestrator's ``/admin/placement``."""
+    doc = _admin_request(args.registry_file, "GET", "/admin/placement")
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return
+    apps = doc.get("apps") or {}
+    if not apps:
+        print("no running apps")
+        return
+    if not doc.get("reshard"):
+        print("NOTE: TASKSRUNNER_RESHARD is off — this is a one-shot sweep, not a live "
+              "control loop")
+    shown = 0
+    for app_id, snap in sorted(apps.items()):
+        for store, entry in sorted((snap.get("stores") or {}).items()):
+            shown += 1
+            migration = entry.get("migration")
+            status = (f", migrating ({migration.get('phase')})"
+                      if isinstance(migration, dict) else "")
+            print(f"{app_id}/{store}: epoch {entry.get('epoch')}, {entry.get('shards')} shards, "
+                  f"{entry.get('replicas_reporting')} replica(s) reporting{status}")
+            assignment = entry.get("assignment") or {}
+            for row in entry.get("ranking") or []:
+                shard = row.get("shard")
+                host = assignment.get(str(shard)) or "local"
+                heat = "HOT" if row.get("hot") else "ok"
+                print(f"  shard {shard}: rank {row.get('rank')}, {row.get('rate')} ops/s "
+                      f"[{heat}] @ {host}")
+            plan = entry.get("plan")
+            if plan:
+                print(f"  plan: {plan.get('action')} shard {plan.get('shard')} — "
+                      f"{plan.get('reason')}")
+    if not shown:
+        print("no sharded stores reporting placement (stores with shards > 1 publish it via "
+              "sidecar metadata)")
 
 
 def _cmd_revisions(args) -> None:
@@ -1032,7 +1073,7 @@ def _cmd_dlq(args) -> None:
 
 
 #: the verbs whose modules are not ported yet, with their ROADMAP items
-NOT_PORTED = {"repl": "A20", "shards": "A20", "actors": "A21", "workflows": "A21",
+NOT_PORTED = {"repl": "A20b", "actors": "A21", "workflows": "A21",
               "chaos": "A23", "lint": "A27", "verify": "A27"}
 
 
@@ -1102,6 +1143,13 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("app_id")
         p.add_argument("--registry-file", **registry)
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser("shards", help="elastic-placement status of sharded stores (routing "
+                                      "epoch, heat ranking, migrations, rebalance plan) from "
+                                      "the orchestrator admin plane")
+    p.add_argument("--registry-file", **registry)
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=_cmd_shards)
 
     p = sub.add_parser("logs", help="the newest output of an app's replicas")
     p.add_argument("app_id")

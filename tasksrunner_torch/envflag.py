@@ -38,7 +38,10 @@ DECLARED = frozenset({
     "TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS",  # float, 0.25: event-loop lag at score 1.0
     "TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",  # int, 512: write-queue depth at score 1.0
     "TASKSRUNNER_REPL_LEASE_SECONDS",  # float, 5: a lease's life (state/lease.py)
-    "TASKSRUNNER_RESHARD",         # bool, off: on is refused, not ported yet (ROADMAP A20)
+    "TASKSRUNNER_RESHARD",         # bool, off: the orchestrator's placement loop
+    "TASKSRUNNER_RESHARD_HEAT_THRESHOLD",  # float, 50: EWMA writes/s at which a shard is hot
+    "TASKSRUNNER_RESHARD_HYSTERESIS_SECONDS",  # float, 10: how long hot before it ranks hot
+    "TASKSRUNNER_RESHARD_PAUSE_BUDGET_SECONDS",  # float, 2: a routing flip's pause, warned past
     "TASKSRUNNER_FLIGHTREC",       # bool, on: the flight recorder (flightrec.py)
     "TASKSRUNNER_FLIGHTREC_DIR",   # path, .tasksrunner/flightrec: where dumps go
     "TASKSRUNNER_FLIGHTREC_RING",  # int, 256: request skeletons the ring keeps

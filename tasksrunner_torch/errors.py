@@ -67,6 +67,30 @@ class EtagMismatch(StateError):
     http_status = 409
 
 
+class CrossShardAtomicityError(StateError):
+    """A cross-shard transaction committed on one or more shards before a
+    later shard's commit failed: the committed shards cannot be rolled
+    back (two-phase commit without a coordinator log). The message names
+    the split; the repair is to re-read the keys. A failure while
+    staging, or on the first commit, raises the original error instead."""
+
+    http_status = 500
+
+
+class PlacementEpochError(StateError):
+    """A state request named a routing epoch that is not the store's
+    placement epoch (:mod:`tasksrunner_torch.state.placement`). Nothing
+    was attempted; the sidecar's 409 carries :attr:`current_epoch` in the
+    ``x-tasksrunner-placement-epoch`` header, so the caller refreshes its
+    map and retries."""
+
+    http_status = 409
+
+    def __init__(self, message: str, *, current_epoch: int) -> None:
+        super().__init__(message)
+        self.current_epoch = int(current_epoch)
+
+
 class QueryError(StateError):
     """A malformed state query (:mod:`tasksrunner_torch.state.query`), or
     a store without query support."""

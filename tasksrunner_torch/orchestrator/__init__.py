@@ -1,8 +1,7 @@
 """The orchestrator of the port's apps: the port of
 ``tasksrunner/orchestrator/`` (run files, supervision and liveness,
-autoscaling, the control-plane lease and the admin API), run by
-``python -m tasksrunner_torch run``. The placement loop is not ported
-(ROADMAP A20)."""
+autoscaling, the placement loop, the control-plane lease and the admin
+API), run by ``python -m tasksrunner_torch run``."""
 
 from tasksrunner_torch.orchestrator.autoscale import AutoscaleController, read_backlog
 from tasksrunner_torch.orchestrator.config import AppSpec, RunConfig, ScaleRule, load_run_config

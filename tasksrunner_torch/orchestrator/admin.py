@@ -21,8 +21,13 @@ Routes, on 127.0.0.1 (``admin_port``, else a free port):
   :func:`~tasksrunner_torch.spans.assemble_trace`, as ``{"trace_id",
   "replicas", "spans"}`` with ``replicas`` the sidecars that answered.
 
-``/admin/actors`` (ROADMAP A21) and ``/admin/placement`` (A20) answer 501
-"not ported yet". An unknown app is a 404 naming the running ones. When
+* ``GET /admin/placement``: per app, each sharded store's epoch, shard
+  assignment, hot/cold ranking, migration in flight and rebalance plan
+  (``{"reshard", "apps": {app: {"app_id", "last_sweep", "stores"}}}``):
+  the placement loops' last sweep with ``TASKSRUNNER_RESHARD`` on, else
+  one sweep made for the request.
+
+``/admin/actors`` (ROADMAP A21) answers 501 "not ported yet". An unknown app is a 404 naming the running ones. When
 ``TASKSRUNNER_API_TOKEN`` is set every request needs it in the
 ``tr-api-token`` header (401), the sidecars' header.
 
@@ -109,7 +114,7 @@ class AdminServer:
         add("GET", "/admin/apps/{app_id}/metrics", self._metrics)
         add("GET", "/admin/traces/{trace_id}", self._traces)
         add("GET", "/admin/actors", _not_ported("A21"))
-        add("GET", "/admin/placement", _not_ported("A20"))
+        add("GET", "/admin/placement", self._placement)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -276,3 +281,20 @@ class AdminServer:
                     sources.append(doc["spans"])
         spans = await asyncio.to_thread(assemble_trace, sources, trace_id)
         return Response(200, {"trace_id": trace_id, "replicas": replicas, "spans": spans})
+
+    async def _placement(self, req: Request) -> Response:
+        controllers = self.orch.placement
+        if controllers:
+            return Response(200, {"reshard": True, "apps": {
+                app_id: c.snapshot() for app_id, c in sorted(controllers.items())}})
+        from tasksrunner_torch.orchestrator.placement import PlacementController
+
+        tokens = self.orch.config.app_tokens
+        apps = {}
+        for app_id in sorted(self.orch.replicas):
+            controller = PlacementController(
+                app_id, lambda a=app_id: self.orch._replica_info(a),
+                api_token=tokens.get(app_id) if tokens else os.environ.get(TOKEN_ENV))
+            await controller.step()
+            apps[app_id] = controller.snapshot()
+        return Response(200, {"reshard": False, "apps": apps})

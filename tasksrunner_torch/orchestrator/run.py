@@ -1,7 +1,6 @@
 """The orchestrator: process supervision, liveness probes, log
 multiplexing and autoscaling of the port's apps, the port of
-``tasksrunner/orchestrator/run.py`` (less the placement loop, which
-waits for ROADMAP A20).
+``tasksrunner/orchestrator/run.py``.
 
 Each replica is a ``python -m tasksrunner_torch host <module>`` process
 (the app and its sidecar in one process), on the card unless the
@@ -20,6 +19,8 @@ each competes on the shared broker file. The orchestrator
   up to 60 s for the ready line before the first probe;
 * scales each app with a scale block by its
   :class:`~tasksrunner_torch.orchestrator.autoscale.AutoscaleController`;
+* with ``TASKSRUNNER_RESHARD`` on, sweeps each app's sharded stores by its
+  :class:`~tasksrunner_torch.orchestrator.placement.PlacementController`;
 * holds the control-plane lease (:class:`~tasksrunner_torch.state.lease.Lease`
   in ``<registry dir>/control-plane.db``, the JAX file and record), so
   one orchestrator runs per registry directory; a ``standby`` one waits
@@ -28,7 +29,7 @@ each competes on the shared broker file. The orchestrator
 * serves the admin API (:mod:`~tasksrunner_torch.orchestrator.admin`):
   status, logs, revisions, rolling restart, env and scale updates.
 
-``TASKSRUNNER_RESHARD`` on and ``mesh_tls`` are refused: not ported yet.
+``mesh_tls`` is refused: not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from tasksrunner_torch.envflag import env_flag
 from tasksrunner_torch.invoke.resolver import NameResolver
 from tasksrunner_torch.orchestrator.autoscale import AutoscaleController
 from tasksrunner_torch.orchestrator.config import AppSpec, RunConfig, not_ported
+from tasksrunner_torch.orchestrator.placement import PlacementController
 from tasksrunner_torch.security import GRANTS_ENV, TOKENS_FILE_ENV, hash_token
 
 logger = logging.getLogger(__name__)
@@ -319,6 +321,8 @@ class Orchestrator:
         self.replicas: dict[str, list[Replica]] = {}
         self._supervisors: list[asyncio.Task] = []
         self._scalers: list[AutoscaleController] = []
+        #: per app, its placement sweep (TASKSRUNNER_RESHARD); /admin/placement reads it
+        self.placement: dict[str, PlacementController] = {}
         self._components = (load_components(config.resources_path)
                             if config.resources_path else [])
         #: per app, its numbered config changes; the newest is active
@@ -342,8 +346,6 @@ class Orchestrator:
         return entry
 
     async def start(self) -> None:
-        if env_flag("TASKSRUNNER_RESHARD", default=False):
-            raise not_ported("TASKSRUNNER_RESHARD (the placement loop)", "A20")
         # the control plane first: two orchestrators over one registry
         # would fight for its ports and entries
         await self._acquire_control_plane()
@@ -376,16 +378,21 @@ class Orchestrator:
                 self._record_revision(app.app_id, "initial deploy")
             while len(self.replicas[app.app_id]) < app.scale.min_replicas:
                 await self._add_replica(app)
+            # the replicas' stats and metadata routes want their token
+            token = (self.config.app_tokens.get(app.app_id) if self.config.app_tokens
+                     else os.environ.get(TOKEN_ENV))
             if app.scale.rules:
                 scaler = AutoscaleController(
                     app, self._components, lambda n, a=app: self._set_replicas(a, n),
                     base_dir=self.config.base_dir,
-                    replica_info=lambda a=app: self._replica_info(a.app_id),
-                    # the replicas' stats and metadata routes want their token
-                    api_token=(self.config.app_tokens.get(app.app_id)
-                               if self.config.app_tokens else os.environ.get(TOKEN_ENV)))
+                    replica_info=lambda a=app: self._replica_info(a.app_id), api_token=token)
                 scaler.start()
                 self._scalers.append(scaler)
+            if env_flag("TASKSRUNNER_RESHARD", default=False):
+                controller = PlacementController(
+                    app.app_id, lambda a=app: self._replica_info(a.app_id), api_token=token)
+                controller.start()
+                self.placement[app.app_id] = controller
         from tasksrunner_torch.orchestrator.admin import AdminServer
         self._admin = AdminServer(self, port=self.config.admin_port)
         await self._admin.start()
@@ -638,9 +645,10 @@ class Orchestrator:
         if self._admin is not None:
             await self._admin.stop()
             self._admin = None
-        for scaler in self._scalers:
-            await scaler.stop()
+        for controller in [*self._scalers, *self.placement.values()]:
+            await controller.stop()
         self._scalers.clear()
+        self.placement.clear()
         # every replica at once: each waits for its process to exit
         await asyncio.gather(*(replica.stop() for group in self.replicas.values()
                                for replica in group))
@@ -681,9 +689,10 @@ class Orchestrator:
         if self._admin is not None:
             await self._admin.abandon()
             self._admin = None
-        for scaler in self._scalers:
-            await scaler.stop()
+        for controller in [*self._scalers, *self.placement.values()]:
+            await controller.stop()
         self._scalers.clear()
+        self.placement.clear()
         doomed: list[asyncio.Task] = list(self._supervisors)
         self._supervisors.clear()
         for task in doomed:

@@ -170,6 +170,15 @@ class Runtime:
         return store, prefixer_for(self.registry.spec(name).metadata, app_id=self.app_id,
                                    component_name=name)
 
+    def check_placement_epoch(self, store_name: str, epoch: int | None) -> None:
+        """A caller's routing epoch against the store's placement map; a
+        store without one (not sharded) and a caller without an epoch pass."""
+        if epoch is None:
+            return
+        check = getattr(self.registry.get(store_name, block="state"), "check_epoch", None)
+        if check is not None:
+            check(epoch)
+
     # -- state -----------------------------------------------------------
 
     async def save_state(self, store_name: str, items: list[dict]) -> None:
@@ -493,7 +502,7 @@ class Runtime:
     # -- metadata / teardown ---------------------------------------------
 
     def metadata(self) -> dict:
-        return {
+        out = {
             "id": self.app_id,
             "components": [{"name": n, "type": self.registry.spec(n).type}
                            for n in self.registry.names()],
@@ -503,6 +512,13 @@ class Runtime:
             "metric_kinds": metrics.snapshot_kinds(),
             "histograms": metrics.snapshot_histograms(),
         }
+        # the sharded stores already built (a read builds none)
+        placement = {n: doc_of() for n in self.registry.names("state")
+                     if (doc_of := getattr(self.registry._instances.get(n), "placement_doc",
+                                           None)) is not None}
+        if placement:
+            out["placement"] = placement
+        return out
 
     async def stop(self) -> None:
         for _, _, cancel in self._subscriptions:

@@ -29,7 +29,12 @@
   (``{"spans": [...]}`` from its span file, the recorder's buffer flushed
   first; ``{"spans": []}`` without a file), what the orchestrator's
   ``/admin/traces/{id}`` gathers from every replica;
-* ``GET /v1.0/healthz`` (204), ``GET /v1.0/metadata`` and ``GET
+* a state route's ``x-tasksrunner-placement-epoch`` header, the routing
+  epoch a caller used, is checked against a sharded store's placement
+  epoch before the operation: another epoch is a 409 whose header of the
+  same name carries the live one (a bad number is a 400);
+* ``GET /v1.0/healthz`` (204), ``GET /v1.0/metadata`` (``placement``: each
+  sharded store's epoch, assignment and heat) and ``GET
   /metrics``: the process-wide registry as Prometheus text 0.0.4
   (``text/plain; version=0.0.4; charset=utf-8``), its token checked
   here so the scrape is not timed into its own histogram.
@@ -68,12 +73,13 @@ from tasksrunner_torch import flightrec, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.app import App, Request, Response, Router, start_server
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
-from tasksrunner_torch.errors import TasksRunnerError, ValidationError
+from tasksrunner_torch.errors import PlacementEpochError, TasksRunnerError, ValidationError
 from tasksrunner_torch.invoke.headers import inward_headers, outward_headers
 from tasksrunner_torch.metrics import metrics, render_prometheus
 from tasksrunner_torch.probes import EventLoopLagProbe
 from tasksrunner_torch.runtime import Runtime
 from tasksrunner_torch.security import hash_token, load_token_map
+from tasksrunner_torch.state.placement import PLACEMENT_EPOCH_HEADER
 from tasksrunner_torch.tracing import BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope
 
 logger = logging.getLogger(__name__)
@@ -84,13 +90,16 @@ PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 def json_error(exc: Exception) -> Response:
     """The answer to a route's error: malformed JSON 400, a runtime
-    error its class's status, anything else 500."""
+    error its class's status, anything else 500. A stale routing epoch's
+    409 carries the live epoch, so the caller refreshes from the refusal."""
     if isinstance(exc, json.JSONDecodeError):
         return Response(400, {"error": f"malformed JSON body: {exc}"})
     if not isinstance(exc, TasksRunnerError):
         logger.exception("unhandled sidecar error")
     status = exc.http_status if isinstance(exc, TasksRunnerError) else 500
-    return Response(status, {"error": str(exc) or type(exc).__name__})
+    headers = ({PLACEMENT_EPOCH_HEADER: str(exc.current_epoch)}
+               if isinstance(exc, PlacementEpochError) else {})
+    return Response(status, {"error": str(exc) or type(exc).__name__}, headers=headers)
 
 
 def _json_reply(value, headers: dict[str, str] | None = None) -> Response:
@@ -177,20 +186,35 @@ class Sidecar:
     def _routes(self) -> None:
         runtime, add = self.runtime, self.router.add
 
+        def check_placement(req: Request) -> None:
+            # a routing-aware caller names the epoch it routed by: another
+            # epoch is a 409 before any shard is touched
+            raw = req.headers.get(PLACEMENT_EPOCH_HEADER)
+            if raw is None:
+                return
+            try:
+                epoch = int(raw)
+            except ValueError:
+                raise ValidationError(f"bad {PLACEMENT_EPOCH_HEADER} header: {raw!r}") from None
+            runtime.check_placement_epoch(req.path_params["store"], epoch)
+
         async def save_state(req: Request) -> Response:
             items = json.loads(req.body)
             if not isinstance(items, list):
                 raise ValidationError("state save body must be a list of {key, value}")
+            check_placement(req)
             await runtime.save_state(req.path_params["store"], items)
             return Response(204)
 
         async def get_state(req: Request) -> Response:
+            check_placement(req)
             item = await runtime.get_state(req.path_params["store"], req.path_params["key"])
             if item is None:
                 return Response(204)
             return _json_reply(item.value, {"etag": item.etag})
 
         async def delete_state(req: Request) -> Response:
+            check_placement(req)
             await runtime.delete_state(req.path_params["store"], req.path_params["key"],
                                        etag=req.headers.get("if-match"))
             return Response(204)
@@ -200,18 +224,21 @@ class Sidecar:
             keys = body.get("keys") if isinstance(body, dict) else body
             if not isinstance(keys, list):
                 raise ValidationError('bulk get body must be {"keys": [...]}')
+            check_placement(req)
             return _json_reply(await runtime.bulk_get_state(req.path_params["store"], keys))
 
         async def transact_state(req: Request) -> Response:
             body = json.loads(req.body)
             if not isinstance(body, dict):
                 raise ValidationError('transaction body must be {"operations": [...]}')
+            check_placement(req)
             await runtime.transact_state(req.path_params["store"], body.get("operations", []))
             return Response(204)
 
         async def query_state(req: Request) -> Response:
-            return _json_reply(await runtime.query_state(req.path_params["store"],
-                                                         json.loads(req.body)))
+            body = json.loads(req.body)
+            check_placement(req)
+            return _json_reply(await runtime.query_state(req.path_params["store"], body))
 
         async def invoke_binding(req: Request) -> Response:
             body = json.loads(req.body)

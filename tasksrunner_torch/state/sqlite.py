@@ -1,6 +1,6 @@
 """The durable sqlite state store: the port of ``tasksrunner/state/sqlite.py``
-(``SqliteStateStore``) without shards, replication and staged
-transactions.
+(``SqliteStateStore``, its staged transactions and the sharded build)
+without replication.
 
 The on-disk schema (``state(key, value, etag)`` and the store-wide etag
 sequence ``etag_seq``) and the value encoding (compact JSON, NaN
@@ -30,10 +30,21 @@ back in the other.
   with the tokens of ``query.paginate``, rows that tie in key order;
   the answer is the in-memory store's. NaN is refused when written, so it never reaches a query.
 
+* **Staged transactions.** :meth:`SqliteStateStore.stage_transact` opens
+  the transaction, checks every etag and applies the ops on the writer
+  thread, then parks that thread until the coordinator commits or rolls
+  back (:class:`StagedTransaction`): the per-shard half of
+  :mod:`tasksrunner_torch.state.sharding`'s two-phase commit. Queued
+  flushes wait behind it, on the same thread and connection.
+* **Shards.** ``shards: N`` builds N stores on ``-shardN`` files behind a
+  :class:`~tasksrunner_torch.state.sharding.ShardedStateStore`
+  (:func:`build_sharded_store`); ``shards: 1`` is the plain store.
+
 The store sets the gauge ``state_write_queue_depth`` (an admission
-signal) once per batch and observes ``state_queue_wait_seconds`` and
-``state_commit_seconds``; with spans recorded, each write of a caller in
-a trace records a ``state-write {store}`` span.
+signal; a shard's carries a ``shard`` label) once per batch and observes
+``state_queue_wait_seconds`` and ``state_commit_seconds``; with spans
+recorded, each write of a caller in a trace records a ``state-write
+{store}`` span.
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ import pathlib
 import sqlite3
 import threading
 import time
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 from tasksrunner_torch import spans
 from tasksrunner_torch._sqlite import begin_immediate, checkpoint_loop, resolve_futures
@@ -58,6 +69,9 @@ from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
 from tasksrunner_torch.state.query import page_window, sort_clauses, validate_filter
 from tasksrunner_torch.tracing import current_trace
+
+if TYPE_CHECKING:  # sharding imports this module
+    from tasksrunner_torch.state.sharding import ShardedStateStore
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS state (
@@ -135,6 +149,12 @@ def _encode(key: str, value: Any) -> str:
         raise StateError(f"value for key {key!r} is not valid JSON: {exc}") from exc
 
 
+def _encode_ops(ops: list[TransactionOp]) -> list[tuple]:
+    return [(op.operation, op.key,
+             _encode(op.key, op.value) if op.operation == "upsert" else None, op.etag)
+            for op in ops]
+
+
 class _PendingWrite:
     """One queued write and its caller's loop and future."""
 
@@ -150,11 +170,70 @@ class _PendingWrite:
         self.ctx = current_trace() if spans.active() else None
 
 
+class StagedTransaction:
+    """The coordinator's handle on one store's staged transaction, held
+    open with the writer thread parked until :meth:`commit` or
+    :meth:`rollback` (exactly one must be awaited). Past the store's
+    ``_STAGE_DECISION_TIMEOUT`` the writer rolls back on its own, and a
+    late :meth:`commit` raises :class:`StateError`."""
+
+    __slots__ = ("_loop", "_staged", "_done", "_lock", "_evt", "_decision")
+
+    def __init__(self, loop: asyncio.AbstractEventLoop) -> None:
+        self._loop = loop
+        #: the ops applied in the open transaction, or the stage's error
+        self._staged: asyncio.Future = loop.create_future()
+        #: "committed" / "rolledback", or the commit's error
+        self._done: asyncio.Future = loop.create_future()
+        self._lock = threading.Lock()
+        self._evt = threading.Event()
+        self._decision: str | None = None
+
+    def _decide(self, decision: str) -> None:
+        # the first decision wins: the writer's deadline races a late
+        # coordinator, and the lock settles the race
+        with self._lock:
+            if self._decision is None:
+                self._decision = decision
+        self._evt.set()
+
+    async def commit(self) -> None:
+        self._decide("commit")
+        if await self._done != "committed":
+            raise StateError("staged transaction was rolled back before the commit "
+                             "decision arrived (decision deadline exceeded)")
+
+    async def rollback(self) -> None:
+        """Idempotent with the writer's own rollback at the deadline."""
+        self._decide("rollback")
+        await self._done
+
+    # the writer thread's side
+
+    def _await_decision(self, timeout: float) -> str:
+        if not self._evt.wait(timeout):
+            self._decide("timeout")
+        with self._lock:
+            return self._decision or "timeout"
+
+    def _post(self, fut: asyncio.Future, value: Any, exc: BaseException | None) -> None:
+        resolve_futures([(self._loop, fut, value, exc)])
+
+
 class SqliteStateStore:
+    #: how long a staged transaction may park the writer waiting for the
+    #: coordinator's decision before the writer rolls it back
+    _STAGE_DECISION_TIMEOUT = 30.0
+
     def __init__(self, name: str, path: str | pathlib.Path = ":memory:", *,
-                 group_commit: bool = True, cache_size: int = 0) -> None:
+                 group_commit: bool = True, cache_size: int = 0,
+                 shard: int | None = None) -> None:
         self.name = name
         self.path = str(path)
+        #: this store's index in a sharded component, else None: it labels
+        #: the queue-depth gauge and names the threads ``{name}.{shard}``
+        self.shard = shard
+        thread_tag = name if shard is None else f"{name}.{shard}"
         self._is_file = self.path != ":memory:"
         if self._is_file:
             pathlib.Path(self.path).parent.mkdir(parents=True, exist_ok=True)
@@ -176,12 +255,12 @@ class SqliteStateStore:
         # in-memory database is private to its connection, so there the
         # reader is the writer.
         self._write_exec = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix=f"state-w-{name}")
+            max_workers=1, thread_name_prefix=f"state-w-{thread_tag}")
         if self._is_file:
             self._rconn = sqlite3.connect(self.path, check_same_thread=False)
             self._rconn.execute("PRAGMA busy_timeout=5000")
             self._read_exec = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"state-r-{name}")
+                max_workers=1, thread_name_prefix=f"state-r-{thread_tag}")
         else:
             self._rconn = self._conn
             self._read_exec = self._write_exec
@@ -192,7 +271,7 @@ class SqliteStateStore:
         if self._is_file:
             self._ckpt_thread = threading.Thread(
                 target=checkpoint_loop, args=(self.path, self._ckpt_stop, self._dirty),
-                name=f"state-ckpt-{name}", daemon=True)
+                name=f"state-ckpt-{thread_tag}", daemon=True)
             self._ckpt_thread.start()
 
         self._q_lock = threading.Lock()
@@ -278,7 +357,11 @@ class SqliteStateStore:
                 self._q_flushing = False
                 return
             self._q_pending = []
-        metrics.set_gauge("state_write_queue_depth", len(batch), store=self.name)
+        if self.shard is None:
+            metrics.set_gauge("state_write_queue_depth", len(batch), store=self.name)
+        else:  # a hot shard's depth shows as its own, not averaged away
+            metrics.set_gauge("state_write_queue_depth", len(batch), store=self.name,
+                              shard=self.shard)
         self._exec_batch(batch)
         with self._q_lock:
             if not self._q_pending:
@@ -449,10 +532,60 @@ class SqliteStateStore:
         return await self._submit_write(("delete", key, etag))
 
     async def transact(self, ops: list[TransactionOp]) -> None:
-        await self._submit_write(("transact", [
-            (op.operation, op.key,
-             _encode(op.key, op.value) if op.operation == "upsert" else None, op.etag)
-            for op in ops]))
+        await self._submit_write(("transact", _encode_ops(ops)))
+
+    async def stage_transact(self, ops: list[TransactionOp]) -> StagedTransaction:
+        """Apply ``ops`` in an open transaction and return it held open,
+        for the coordinator to commit or roll back. A stage that fails
+        (an etag, the lock's deadline) rolls back and raises here: a
+        failed stage never leaves a transaction open."""
+        encoded = _encode_ops(ops)
+        txn = StagedTransaction(asyncio.get_running_loop())
+        closed = StateError(f"state store {self.name!r} is closed")
+        with self._q_lock:
+            if self._closed:
+                raise closed
+            try:
+                self._write_exec.submit(self._stage_job, encoded, txn)
+            except RuntimeError:
+                raise closed from None
+        await txn._staged
+        return txn
+
+    def _stage_job(self, ops: list[tuple], txn: StagedTransaction) -> None:
+        """Writer thread: BEGIN, check and apply, park on the decision,
+        then COMMIT or ROLLBACK."""
+        cur = self._conn.cursor()
+        mutations: list[tuple] = []
+        try:
+            begin_immediate(cur)
+            try:
+                need = sum(1 for o in ops if o[0] == "upsert")
+                seq = iter(range(self._reserve_etags(cur, need), 2 ** 63)) if need else iter(())
+                self._apply_transact(cur, ops, mutations, lambda: str(next(seq)))
+            except BaseException:
+                self._conn.rollback()
+                raise
+        except BaseException as exc:  # noqa: BLE001 - the coordinator's error
+            txn._post(txn._staged, None, exc)
+            return
+        txn._post(txn._staged, None, None)
+        decision = txn._await_decision(self._STAGE_DECISION_TIMEOUT)
+        try:
+            if decision == "commit":
+                try:
+                    self._conn.commit()
+                except BaseException:
+                    self._conn.rollback()
+                    raise
+                self._dirty[0] = True
+                self._cache_apply(mutations)
+                txn._post(txn._done, "committed", None)
+            else:
+                self._conn.rollback()
+                txn._post(txn._done, "rolledback", None)
+        except BaseException as exc:  # noqa: BLE001 - a disk-level failure
+            txn._post(txn._done, None, exc)
 
     async def query(self, query: dict, *, key_prefix: str = "") -> QueryResponse:
         if not isinstance(query, dict):
@@ -521,16 +654,56 @@ class SqliteStateStore:
         self._conn.close()
 
 
+def _shard_path(path: str, index: int) -> str:
+    """Shard ``index``'s file: ``tasks.db`` → ``tasks-shard0.db``, … ;
+    ``:memory:`` stays, each connection to it being a private database."""
+    if path == ":memory:":
+        return path
+    p = pathlib.Path(path)
+    return str(p.with_name(f"{p.stem}-shard{index}{p.suffix}"))
+
+
+def build_sharded_store(name: str, path: str | pathlib.Path = ":memory:", *, shards: int,
+                        hash_seed: str = "", group_commit: bool = True,
+                        cache_size: int = 0) -> ShardedStateStore:
+    """``shards`` stores, each on its own ``-shardN`` file with its own
+    writer, reader and checkpointer, behind one facade routing by
+    rendezvous hash. The read cache's budget is split over the shards."""
+    from tasksrunner_torch.state.sharding import MAX_SHARDS, ShardedStateStore
+    if not 1 <= shards <= MAX_SHARDS:
+        # before any child: each starts threads a late error would leak
+        raise ComponentError(f"state store {name!r}: shards must be in 1..{MAX_SHARDS}, "
+                             f"not {shards}")
+    per_shard_cache = max(1, cache_size // shards) if cache_size else 0
+
+    def make_child(i: int) -> SqliteStateStore:
+        return SqliteStateStore(name, _shard_path(str(path), i), group_commit=group_commit,
+                                cache_size=per_shard_cache, shard=i)
+
+    facade = ShardedStateStore(name, [make_child(i) for i in range(shards)],
+                               hash_seed=hash_seed)
+    facade.child_factory = make_child  # an online split makes shard N the same way
+    return facade
+
+
 @driver("state.sqlite", "state.azure.cosmosdb", "state.postgresql")
-def _sqlite_state(spec: ComponentSpec, metadata: dict[str, str]) -> SqliteStateStore:
+def _sqlite_state(spec: ComponentSpec, metadata: dict[str, str]):
     """``databasePath`` picks the file (in memory without one);
     ``groupCommit`` (true) and ``readCacheSize`` (0, off) as above.
-    ``shards`` and ``replicas`` other than 1 are not ported yet."""
-    for knob in ("shards", "replicas"):
-        if metadata_int(metadata, knob, 1) != 1:
-            raise ComponentError(
-                f"state store {spec.name!r}: {knob} other than 1 is not ported yet")
-    return SqliteStateStore(
-        spec.name, metadata.get("databasePath", ":memory:"),
-        group_commit=metadata_bool(metadata, "groupCommit", True),
-        cache_size=metadata_int(metadata, "readCacheSize", 0))
+    ``shards`` (1) partitions the store over that many ``-shardN`` files
+    by rendezvous hash of the key, seeded by ``hashSeed`` (empty; every
+    replica opening the files must use the same); ``shards: 1`` is the
+    plain single-file store. ``replicas`` other than 1 is not ported yet."""
+    if metadata_int(metadata, "replicas", 1) > 1:
+        raise ComponentError(f"state store {spec.name!r}: replicas other than 1 is not "
+                             "ported yet (ROADMAP A20b)")
+    shards = metadata_int(metadata, "shards", 1)
+    path = metadata.get("databasePath", ":memory:")
+    group_commit = metadata_bool(metadata, "groupCommit", True)
+    cache_size = metadata_int(metadata, "readCacheSize", 0)
+    if shards == 1:
+        return SqliteStateStore(spec.name, path, group_commit=group_commit,
+                                cache_size=cache_size)
+    return build_sharded_store(spec.name, path, shards=shards,
+                               hash_seed=metadata.get("hashSeed", ""),
+                               group_commit=group_commit, cache_size=cache_size)

@@ -36,7 +36,7 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
     loaded = out.split()
     # every module, the request path's observability, the sidecar, the
     # orchestrator, resiliency, secrets, deploy, bindings, the query
-    # dialect and the operating plane's helpers among them
+    # dialect, the operating plane's helpers and sharded state among them
     for name in ("tasksrunner_torch.service", "tasksrunner_torch.probes",
                  "tasksrunner_torch.admission", "tasksrunner_torch.spans",
                  "tasksrunner_torch.tracing", "tasksrunner_torch.sidecar",
@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax_and_no_tasksrunner():
                  "tasksrunner_torch.bindings.email", "tasksrunner_torch.state.query",
                  "tasksrunner_torch.ids", "tasksrunner_torch.names",
                  "tasksrunner_torch.flightrec", "tasksrunner_torch.logconfig",
-                 "tasksrunner_torch.eventloop"):
+                 "tasksrunner_torch.eventloop", "tasksrunner_torch.state.sharding",
+                 "tasksrunner_torch.state.placement",
+                 "tasksrunner_torch.orchestrator.placement"):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

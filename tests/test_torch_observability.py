@@ -97,16 +97,32 @@ def test_admission_scores_and_sheds_as_the_jax_controller(monkeypatch, limits):
 
 
 async def test_lag_probe_reports_a_blocked_loop():
+    """Each check reads the value the probe writes to the gauge next,
+    never the gauge after a fixed sleep: on a loaded machine a sleep can
+    end before the probe has written, or after it has recovered."""
     reg = MetricsRegistry()
+    readings: asyncio.Queue = asyncio.Queue()
+    set_gauge = reg.set_gauge
+
+    def noted(name, value, **labels):
+        set_gauge(name, value, **labels)
+        readings.put_nowait(value)
+
+    reg.set_gauge = noted
     probe = EventLoopLagProbe(interval=0.05, registry=reg)
     probe.start()
     try:
-        await asyncio.sleep(0.12)  # the probe is inside one of its sleeps
-        time.sleep(0.3)            # the loop is blocked meanwhile
-        await asyncio.sleep(0.02)
-        assert reg.get("event_loop_lag_seconds") >= 0.2
-        await asyncio.sleep(0.2)   # and recovers once the loop runs again
-        assert reg.get("event_loop_lag_seconds") < 0.2
+        # a reading: the probe has just begun its next sleep
+        await asyncio.wait_for(readings.get(), 10)
+        time.sleep(0.3)  # the loop is blocked through that sleep
+        blocked = await asyncio.wait_for(readings.get(), 10)
+        assert blocked >= 0.2
+        # and it recovers once the loop runs again: a reading below 0.2 s
+        # within the next four (0.2 s of probing at 0.05 s)
+        after = []
+        while len(after) < 4 and (not after or after[-1] >= 0.2):
+            after.append(await asyncio.wait_for(readings.get(), 10))
+        assert after[-1] < 0.2, f"no reading below 0.2 s in {after}"
     finally:
         await probe.stop()
 

@@ -10,7 +10,8 @@ by its own time limit:
   launch counts, and leaves the registry empty;
 * the admin verbs through the command line (``scale``, ``update``,
   ``restart``, ``logs``, ``revisions``, ``ps``), the merged metrics, a
-  trace no replica recorded, the routes not ported yet, a second
+  trace no replica recorded, ``/admin/actors`` not ported yet,
+  ``/admin/placement``'s one-shot sweep and ``shards``, a second
   orchestrator fenced out, a standby that
   adopts the replica an abandoned orchestrator left running, and
   ``stop``, after which the adopted replica is respawned."""
@@ -260,10 +261,22 @@ async def test_admin_verbs_fencing_and_adoption(tmp_path, monkeypatch, capsys):
             status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/traces/abc")
             assert (status, json.loads(body)) == (
                 200, {"trace_id": "abc", "replicas": 1, "spans": []})
-            for path, item in (("/admin/actors", "A21"), ("/admin/placement", "A20")):
-                status, _, body = await http_request("127.0.0.1", port, "GET", path)
-                assert (status, json.loads(body)["error"]) == (
-                    501, f"{path} is not ported yet (ROADMAP {item})")
+            status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/actors")
+            assert (status, json.loads(body)["error"]) == (
+                501, "/admin/actors is not ported yet (ROADMAP A21)")
+            # TASKSRUNNER_RESHARD off: one sweep for the request, over a
+            # replica whose app has no sharded store
+            status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/placement")
+            doc = json.loads(body)
+            assert status == 200 and doc["reshard"] is False and list(doc["apps"]) == [APP]
+            assert doc["apps"][APP]["stores"] == {} and doc["apps"][APP]["last_sweep"] > 0
+            capsys.readouterr()
+            await _cli("shards", *verbs)
+            assert capsys.readouterr().out.splitlines() == [
+                "NOTE: TASKSRUNNER_RESHARD is off — this is a one-shot sweep, not a live "
+                "control loop",
+                "no sharded stores reporting placement (stores with shards > 1 publish it "
+                "via sidecar metadata)"]
 
             # a second orchestrator on this registry is fenced out
             with pytest.raises(SystemExit, match="--standby"):
