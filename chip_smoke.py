@@ -163,28 +163,44 @@ exit, traceback) at the first phase that does not hold:
    calls', the chains, the dumps and the card's memory;
 8g. placement: ``python -m tasksrunner_torch run`` with
    ``TASKSRUNNER_RESHARD=1`` over one scorer replica whose ``scores`` store
-   (the sample's file) is ``state.sqlite`` on 4 shards with a fixed
-   ``hashSeed``: a burst of 256 saved-task events (published by a runtime
-   in this process) and 16 ``/score`` calls through the replica's sidecar;
-   every event's key in the ``scores-shardN.db`` file ``ShardRouter``
-   names and in no other, no shard empty; 8 reads with the placement-epoch
+   (the sample's file) is ``state.sqlite`` on 4 shards of 3 members
+   (``replicas: 3``, a leased leader a shard, ack after replication) with
+   a fixed ``hashSeed``: a burst of 256 saved-task events (published by a
+   runtime in this process) and 16 ``/score`` calls through the replica's
+   sidecar; every event's key in the ``scores-shardN.db`` file
+   ``ShardRouter`` names and in no other, no shard empty, and on the 3
+   member files of that shard, which stand at one ``repl_meta`` hwm; the
+   meta file's 4 leases; 8 reads with the placement-epoch
    header at epoch 1 answered 200 and at epoch 0 answered 409 with the
    header at 1, ``placement_stale_routes_total`` 8; a transaction over
    keys on two shards commits both, the same with one stale etag is a 409
    that changes neither; one paged query (50 a page) returns every key
    once; ``/admin/placement`` and ``python -m tasksrunner_torch shards``
-   show the store at epoch 1 on 4 shards, every shard's rate above 0 and
-   the plan field, from a sweep after the burst; SIGTERM, the replica's
-   B1 launches equal to its ``expected_serve_launches``, the stored scores
-   within 2e-2 of the scorer's in this process. Then, in this process, a
-   4-shard store of 1024 scores that the model computes on the card is
-   split to 5 while a writer goes on scoring and storing: every
-   acknowledged write reads back, epoch 2, the moved share of the 1024
-   keys within 0.12–0.28, each key on the one shard its router names,
-   the flip's pause within ``TASKSRUNNER_RESHARD_PAUSE_BUDGET_SECONDS``
-   (2 s), and the writer's B1 launches ``n_layers`` a batch. Prints the
-   events/s, the stale 409s, the transaction's ms, the query's ms a page,
-   the ranking, the verb's lines and the split's numbers;
+   show the store at epoch 1 on 4 shards, every shard's rate above 0, the
+   plan field and each shard's leader (the lease's owner), from a sweep
+   after the burst; SIGTERM, the replica's B1 launches equal to its
+   ``expected_serve_launches``, ``python -m tasksrunner_torch repl`` on
+   the files: 4 shards, each leader named, 3 members each; the stored
+   scores within 2e-2 of the scorer's in this process. Then, in this
+   process, two stores each take 1024 scores that the model computes on
+   the card while a writer goes on scoring and storing. A plain store on
+   4 shards (one member each) is split to 5. A store built from component
+   metadata on 4 shards of 3 members (a 1 s lease) has shard 0's
+   leadership handed to a follower (``migrate_shard(0, member=…)``:
+   epoch 2), shard 1's leader crashed while a batch's writes are in
+   flight (the seconds until a new leader acks a write; every write
+   acked on that shard reads back from the new leader and the surviving
+   follower; a write the crash left unacknowledged failed with a state
+   error, on that shard alone) and is split to 5 (a new set of 3
+   members). For each split: every acknowledged write reads back, the
+   moved share of the 1024 keys within 0.12–0.28, each key on the one
+   shard its router names (and on all its members), each flip's pause
+   within ``TASKSRUNNER_RESHARD_PAUSE_BUDGET_SECONDS`` (2 s), and the
+   writers' B1 launches ``n_layers`` a batch. Prints the events/s, the
+   replica's commits, the records replicated, the stale 409s, the
+   transaction's ms, the query's ms a page, the ranking, the verbs'
+   lines, the handoff's pause, the failover's seconds and the splits'
+   numbers;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -262,12 +278,14 @@ from tasksrunner_torch.app import App  # noqa: E402
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request  # noqa: E402
 from tasksrunner_torch.component.loader import load_components  # noqa: E402
 from tasksrunner_torch.component.registry import ComponentRegistry  # noqa: E402
+from tasksrunner_torch.component.spec import parse_component  # noqa: E402
+from tasksrunner_torch.errors import StateError  # noqa: E402
 from tasksrunner_torch.hosting import InProcHost  # noqa: E402
 from tasksrunner_torch.metrics import metrics  # noqa: E402
 from tasksrunner_torch.probes import LAG_GAUGE  # noqa: E402
 from tasksrunner_torch.pubsub import InMemoryBroker  # noqa: E402
 from tasksrunner_torch.runtime import Runtime  # noqa: E402
-from tasksrunner_torch.state import InMemoryStateStore, placement  # noqa: E402
+from tasksrunner_torch.state import InMemoryStateStore, placement, replication  # noqa: E402
 from tasksrunner_torch.state.sharding import ShardRouter  # noqa: E402
 from tasksrunner_torch.state.sqlite import build_sharded_store  # noqa: E402
 from tasksrunner_torch.mesh import Mesh  # noqa: E402
@@ -3163,19 +3181,26 @@ def phase_observability(smi: str) -> int:
     return launched
 
 
-PLACE_SHARDS, PLACE_SEED = 4, "chip-smoke-placement"
+PLACE_SHARDS, PLACE_REPLICAS, PLACE_SEED = 4, 3, "chip-smoke-placement"
 PLACE_EVENTS, PLACE_CALLS, PLACE_READS = 256, 16, 8
 SPLIT_KEYS, SPLIT_BATCH = 1024, 32
+#: the in-process store's shards whose leadership is handed over, and
+#: whose leader is crashed
+HANDOFF_SHARD, FAILOVER_SHARD = 0, 1
+#: the in-process store's lease, short so that a failover takes about a second
+REPL_LEASE_S = "1"
 
 
 def _placement_files(data: Path) -> Path:
-    """The sample's store file as ``scores`` on 4 shards with a fixed
-    ``hashSeed``, the broker file, and a run file of one scorer replica."""
+    """The sample's store file as ``scores`` on 4 shards of 3 members with a
+    fixed ``hashSeed``, the broker file, and a run file of one scorer
+    replica."""
     comps, registry = data / "components", data / "apps.json"
     _write_components(comps, data)
     store = comps / "statestore.yaml"
     store.write_text(store.read_text().replace(
         "scopes:", f'  - name: shards\n    value: "{PLACE_SHARDS}"\n'
+                   f'  - name: replicas\n    value: "{PLACE_REPLICAS}"\n'
                    f"  - name: hashSeed\n    value: {PLACE_SEED}\nscopes:"))
     run_file = data / "run.yaml"
     run_file.write_text(
@@ -3190,69 +3215,256 @@ def _scores(probs: np.ndarray) -> list[dict]:
              "confidence": float(row.max())} for row in probs]
 
 
-async def _online_split(data: Path) -> dict:
-    """A 4-shard store of this process split to 5 while a writer stores
-    scores the model computes on the card: returns the split's numbers and
-    the model's batches (each one forward, ``n_layers`` B1 launches)."""
-    device = torch.device("cuda", 0)
-    params = init_params(SERVED, 0, device)
-    store = build_sharded_store("scores", data / "split" / "scores.db", shards=PLACE_SHARDS,
-                                hash_seed=PLACE_SEED)
-    acked: dict[str, dict] = {}
-    batches = [0]
+def _member_rows(path: Path) -> tuple[int, list[tuple]]:
+    """A member file's high-water mark and its (key, value) rows."""
+    with contextlib.closing(sqlite3.connect(path, timeout=5)) as conn:
+        hwm = conn.execute("SELECT hwm FROM repl_meta WHERE id = 1").fetchone()[0]
+        return hwm, conn.execute("SELECT key, value FROM state ORDER BY key").fetchall()
 
-    async def score_and_store(prefix: str) -> None:
-        tasks = [_saved_task(prefix, len(acked) + i) for i in range(SPLIT_BATCH)]
+
+async def _members_settled(sets, what: str) -> None:
+    """Every replica set's members at one position."""
+    deadline = time.monotonic() + 60
+    while not all(len({n.store.repl_position() for n in rs.nodes}) == 1 for rs in sets):
+        check(time.monotonic() < deadline, f"{what}: members not at one position "
+              f"{[[n.store.repl_position() for n in rs.nodes] for rs in sets]}")
+        await asyncio.sleep(0.02)
+
+
+def _repl_records(snapshot: dict) -> float:
+    return sum(v for k, v in snapshot.items() if k.startswith("repl_records_total{"))
+
+
+class _ScoringWriter:
+    """Scores batches of saved tasks with the model on the card and stores
+    each batch's scores at once. ``acked`` holds the writes that resolved,
+    ``failed`` those that raised (a drill allows them only where it
+    crashes a leader); ``storing`` is set while a batch's writes are in
+    flight. Each batch is one forward: ``n_layers`` B1 launches."""
+
+    def __init__(self, store) -> None:
+        self.store = store
+        self.device = torch.device("cuda", 0)
+        self.params = init_params(SERVED, 0, self.device)
+        self.acked: dict[str, dict] = {}
+        self.failed: dict[str, BaseException] = {}
+        self.issued = self.batches = 0
+        self.storing = asyncio.Event()
+        self._stop = asyncio.Event()
+        self._task: asyncio.Task | None = None
+
+    async def batch(self, prefix: str) -> None:
+        tasks = [_saved_task(prefix, self.issued + i) for i in range(SPLIT_BATCH)]
+        self.issued += SPLIT_BATCH
         tokens = np.stack([service.task_tokens(t, SERVED) for t in tasks])
-        probs = await asyncio.to_thread(service.batch_probs, [params], [device], tokens,
-                                        cfg=SERVED)
-        batches[0] += 1
+        probs = await asyncio.to_thread(service.batch_probs, [self.params], [self.device],
+                                        tokens, cfg=SERVED)
+        self.batches += 1
         values = dict(zip((t["taskId"] for t in tasks), _scores(probs)))
-        await asyncio.gather(*(store.set(k, v) for k, v in values.items()))
-        acked.update(values)
+        writes = asyncio.gather(*(self.store.set(k, v) for k, v in values.items()),
+                                return_exceptions=True)
+        self.storing.set()
+        try:
+            done = await writes
+        finally:
+            self.storing.clear()
+        for (key, value), result in zip(values.items(), done):
+            if isinstance(result, BaseException):
+                self.failed[key] = result
+            else:
+                self.acked[key] = value
 
-    stop = asyncio.Event()
+    async def fill(self, keys: int) -> None:
+        while len(self.acked) < keys:
+            await self.batch("split")
 
-    async def writer() -> None:
-        while not stop.is_set():
-            await score_and_store("split-live")
+    def start(self) -> None:
+        self._task = asyncio.create_task(self._run())
 
+    async def _run(self) -> None:
+        while not self._stop.is_set():
+            await self.batch("split-live")
+
+    async def stop(self) -> None:
+        self._stop.set()
+        if self._task is not None:
+            await self._task
+
+    async def cancel(self) -> None:
+        """After a failed check: the writer goes before the store closes."""
+        self._stop.set()
+        if self._task is not None and not self._task.done():
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+
+
+async def _split_under(store, writer: _ScoringWriter, before: dict, epoch: int) -> dict:
+    """``store`` split to one more shard while ``writer`` runs, then the
+    writer stopped: every acknowledged write reads back, about a fifth of
+    the keys moved, each key on the one shard its router names, the
+    flip's pause within its budget."""
+    shards = store.shard_count
+    split_t = time.monotonic()
+    result = await store.split_shard()
+    split_s = time.monotonic() - split_t
+    await asyncio.sleep(0.2)
+    await writer.stop()
+    items = await store.bulk_get(list(writer.acked))
+    lost = [k for k, item in zip(writer.acked, items)
+            if item is None or item.value != writer.acked[k]]
+    check(not lost, f"{len(lost)} acknowledged writes lost: {lost[:5]}")
+    check(result["epoch"] == store.placement.epoch == epoch and result["shards"] == shards + 1,
+          f"the split's result {result}")
+    moved_share = sum(store.router.shard_of(k) != s for k, s in before.items()) / len(before)
+    check(len(before) >= 1000 and 0.12 <= moved_share <= 0.28,
+          f"moved share {moved_share} of {len(before)} keys")
+    held = [await child.keys() for child in store._shards]
+    every = await store.keys()
+    check(sorted(k for ks in held for k in ks) == every and len(every) == len(set(every))
+          and all(store.router.shard_of(k) == i for i, ks in enumerate(held) for k in ks),
+          "a key on no shard, on two, or on one its router does not name")
+    budget = placement.pause_budget_default()
+    check(result["pause_seconds"] <= budget,
+          f"the split's flip paused writes {result['pause_seconds']} s, budget {budget} s")
+    return {"keys_before": len(before), "keys_after": len(every), "moved_share": moved_share,
+            "keys_moved": result["keys_moved"], "split_s": split_s, "epoch": result["epoch"],
+            "pause_s": result["pause_seconds"], "pause_budget_s": budget,
+            "per_shard": [len(ks) for ks in held]}
+
+
+async def _plain_split(data: Path) -> dict:
+    """A 4-shard ``scores`` store of plain members (``replicas: 1``) in this
+    process split to 5 while the writer stores scores: the unreplicated
+    path of the split and its chunked copy. Returns the numbers and the
+    writer's batches."""
+    store = build_sharded_store("scores", data / "split-plain" / "scores.db",
+                                shards=PLACE_SHARDS, hash_seed=PLACE_SEED)
+    check(all(type(child).__name__ == "SqliteStateStore" for child in store._shards),
+          f"the plain store's children {store._shards}")
+    writer = _ScoringWriter(store)
     try:
-        while len(acked) < SPLIT_KEYS:
-            await score_and_store("split")
+        await writer.fill(SPLIT_KEYS)
         before = {k: store.router.shard_of(k) for k in await store.keys()}
-        live = asyncio.create_task(writer())
+        writer.start()
         await asyncio.sleep(0.2)
-        split_t = time.monotonic()
-        result = await store.split_shard()
-        split_s = time.monotonic() - split_t
-        await asyncio.sleep(0.2)
-        stop.set()
-        await live
-        items = await store.bulk_get(list(acked))
-        lost = [k for k, item in zip(acked, items) if item is None or item.value != acked[k]]
-        check(not lost, f"{len(lost)} acknowledged writes lost in the split: {lost[:5]}")
-        check(result["epoch"] == store.placement.epoch == 2 and result["shards"] == 5,
-              f"the split's result {result}")
-        moved = sum(store.router.shard_of(k) != s for k, s in before.items()) / len(before)
-        check(len(before) >= 1000 and 0.12 <= moved <= 0.28,
-              f"moved share {moved} of {len(before)} keys")
-        held = [await store._shards[i].keys() for i in range(store.shard_count)]
-        every = await store.keys()
-        check(sorted(k for ks in held for k in ks) == every and len(every) == len(set(every))
-              and all(store.router.shard_of(k) == i for i, ks in enumerate(held) for k in ks),
-              "a key on no shard, on two, or on one its router does not name")
-        budget = placement.pause_budget_default()
-        check(result["pause_seconds"] <= budget,
-              f"the flip paused writes {result['pause_seconds']} s, budget {budget} s")
-        return {"keys_before": len(before), "keys_after": len(every),
-                "written_during_split": len(acked) - SPLIT_KEYS, "moved_share": moved,
-                "keys_moved": result["keys_moved"], "split_s": split_s, "epoch": result["epoch"],
-                "pause_s": result["pause_seconds"], "pause_budget_s": budget,
-                "per_shard": [len(ks) for ks in held], "batches": batches[0]}
+        split = await _split_under(store, writer, before, 2)
+        check(not writer.failed, f"{len(writer.failed)} writes failed on the plain store: "
+                                 f"{list(writer.failed.items())[:3]}")
+        return {"members": 1, **split, "written_during": len(writer.acked) - SPLIT_KEYS,
+                "batches": writer.batches}
     finally:
-        stop.set()
+        await writer.cancel()
         await asyncio.to_thread(store.close)
+
+
+async def _in_process_replica_sets(data: Path) -> dict:
+    """A ``scores`` store of this process built from component metadata on 4 shards of
+    3 members, while the writer stores scores: shard 0's leadership handed
+    to a follower, shard 1's leader crashed while a batch's writes are in
+    flight, then the split to 5. Returns the numbers and the writer's
+    batches."""
+    lease_env, saved_lease = "TASKSRUNNER_REPL_LEASE_SECONDS", os.environ.get(
+        "TASKSRUNNER_REPL_LEASE_SECONDS")
+    os.environ[lease_env] = REPL_LEASE_S  # read as each member is made, the split's too
+    meta = {"databasePath": str(data / "split" / "scores.db"), "shards": str(PLACE_SHARDS),
+            "replicas": str(PLACE_REPLICAS), "hashSeed": PLACE_SEED}
+    store = ComponentRegistry([parse_component({"componentType": "state.sqlite", "metadata": [
+        {"name": k, "value": v} for k, v in meta.items()]}, default_name="scores")]).get("scores")
+    check(type(store).__name__ == "ShardedStateStore"
+          and all(len(rs.nodes) == PLACE_REPLICAS for rs in store._shards),
+          f"the component built {store!r}")
+    records_before = _repl_records(metrics.snapshot())
+    writer = _ScoringWriter(store)
+    try:
+        await writer.fill(SPLIT_KEYS)
+        before = {k: store.router.shard_of(k) for k in await store.keys()}
+        writer.start()
+        await asyncio.sleep(0.2)
+
+        # (a) shard 0's leadership handed to a follower under the writer
+        moved = store._shards[HANDOFF_SHARD]
+        old_leader = moved.leader_member()
+        target = next(n.node_id for n in moved.nodes if n.node_id != old_leader)
+        handoff = await store.migrate_shard(HANDOFF_SHARD, member=target)
+        check(moved.leader_member() == target and handoff["epoch"] == store.placement.epoch == 2
+              and store.placement.assignment == {HANDOFF_SHARD: target},
+              f"the handoff's result {handoff}, leader {moved.leader_member()}")
+        lease_epoch = next(n for n in moved.nodes if n.node_id == target).store.repl_position()[1]
+        check(lease_epoch == 2, f"shard {HANDOFF_SHARD}'s epoch after the handoff: {lease_epoch}")
+        await asyncio.sleep(0.2)
+
+        # (b) shard 1's leader crashed while the writer's batch is in
+        # flight; a probe write on that shard waits for the new leader's ack
+        failing = store._shards[FAILOVER_SHARD]
+        await writer.storing.wait()
+        victim = next(n for n in failing.nodes if n.node_id == failing.leader_member())
+        victim.crash()
+        crashed_t = time.monotonic()
+        probe = next(k for k in (f"failover-probe-{i}" for i in range(1000))
+                     if store.router.shard_of(k) == FAILOVER_SHARD)
+        await store.set(probe, {"after": "crash"})
+        failover_s = time.monotonic() - crashed_t
+        writer.acked[probe] = {"after": "crash"}
+        new_leader = next(n for n in failing.nodes if n.node_id == failing.leader_member())
+        survivor = next(n for n in failing.nodes if n not in (victim, new_leader))
+        await asyncio.sleep(0.2)
+        # every write acked so far on that shard, and the new leader's
+        # position, read with nothing in between: each of those writes is
+        # in its log at or below that position
+        on_failed = {k: v for k, v in writer.acked.items()
+                     if store.router.shard_of(k) == FAILOVER_SHARD}
+        leader_hwm, failover_epoch = new_leader.store.repl_position()
+        deadline = time.monotonic() + 30
+        while survivor.store.repl_position()[0] < leader_hwm:
+            check(time.monotonic() < deadline, "the surviving follower did not catch up")
+            await asyncio.sleep(0.02)
+        for node in (new_leader, survivor):
+            items = await node.store.bulk_get(list(on_failed))
+            lost = [k for k, item in zip(on_failed, items)
+                    if item is None or item.value != on_failed[k]]
+            check(not lost, f"{len(lost)} acknowledged writes missing on {node.node_id} after "
+                            f"the failover: {lost[:5]}")
+        check(failover_epoch == 2, f"shard {FAILOVER_SHARD}'s epoch after the failover: "
+                                   f"{failover_epoch}")
+        # a write the crash left unacknowledged failed with a state error
+        # on the crashed shard, and on no other
+        unacked = dict(writer.failed)
+        check(all(isinstance(exc, StateError) for exc in unacked.values())
+              and all(store.router.shard_of(k) == FAILOVER_SHARD for k in unacked),
+              f"writes failed outside the crash: {list(unacked.items())[:3]}")
+        victim.revive()  # the new leader resyncs it
+
+        # (c) the split to 5, a replica set of 3 members made for shard 4
+        split = await _split_under(store, writer, before, 3)
+        check(len(store._shards[4].nodes) == PLACE_REPLICAS and writer.failed == unacked,
+              f"the split's set {store._shards[4]!r}, failed writes {len(writer.failed)}")
+        await _members_settled(store._shards, "after the split")
+        for i, rs in enumerate(store._shards):
+            per_member = [sorted(await n.store.keys()) for n in rs.nodes]
+            check(all(keys == per_member[0] for keys in per_member),
+                  f"shard {i}'s members hold different keys")
+        budget = placement.pause_budget_default()
+        check(handoff["pause_seconds"] <= budget,
+              f"the handoff's flip paused writes {handoff['pause_seconds']} s, budget {budget} s")
+        return {"members": PLACE_REPLICAS, **split,
+                "written_during": len(writer.acked) - SPLIT_KEYS,
+                "handoff": {"shard": HANDOFF_SHARD, "from": old_leader, "to": target,
+                            "epoch": lease_epoch, "placement_epoch": handoff["epoch"],
+                            "pause_s": handoff["pause_seconds"]},
+                "failover": {"shard": FAILOVER_SHARD, "crashed": victim.node_id,
+                             "new_leader": new_leader.node_id, "epoch": failover_epoch,
+                             "seconds_to_ack": failover_s, "lease_s": float(REPL_LEASE_S),
+                             "acked_keys_checked": len(on_failed),
+                             "unacked_in_crash": len(unacked)},
+                "records_replicated": _repl_records(metrics.snapshot()) - records_before,
+                "batches": writer.batches}
+    finally:
+        await writer.cancel()
+        await store.aclose()
+        if saved_lease is None:
+            os.environ.pop(lease_env, None)
+        else:
+            os.environ[lease_env] = saved_lease
 
 
 async def _placement_phase(data: Path) -> dict:
@@ -3266,7 +3478,10 @@ async def _placement_phase(data: Path) -> dict:
                                                       app_id="some-api"))
     phase_t = time.monotonic()
     router = ShardRouter(PLACE_SHARDS, PLACE_SEED)
+    # member 0's files: the leaders' while no failover or handoff moves them
     shard_files = [data / f"scores-shard{i}.db" for i in range(PLACE_SHARDS)]
+    member_files = [[Path(replication._member_path(str(data / "scores.db"), i, m, PLACE_SHARDS))
+                     for m in range(PLACE_REPLICAS)] for i in range(PLACE_SHARDS)]
     epoch_header = placement.PLACEMENT_EPOCH_HEADER
 
     def held() -> list[list[str]]:
@@ -3315,6 +3530,24 @@ async def _placement_phase(data: Path) -> dict:
               "the shard files do not hold each event's key once")
         check(all(per_shard) and all(router.shard_of(k) == i for i, ks in enumerate(per_shard)
                                      for k in ks), f"keys per shard {list(map(len, per_shard))}")
+        # ... and on each of its shard's 3 members, the members at one hwm
+        deadline = time.monotonic() + 60
+        while True:
+            members = [[_member_rows(path) for path in paths] for paths in member_files]
+            hwms = [[hwm for hwm, _ in shard] for shard in members]
+            if all(len(set(h)) == 1 for h in hwms):
+                break
+            check(time.monotonic() < deadline, f"the members' hwms never met: {hwms}")
+            await asyncio.sleep(0.05)
+        check(all([k for k, _ in rows] == per_shard[i] for i, shard in enumerate(members)
+                  for _, rows in shard)
+              and all(rows == shard[0][1] for shard in members for _, rows in shard),
+              "a shard's members hold different rows")
+        with contextlib.closing(sqlite3.connect(data / "scores-repl-meta.db")) as conn:
+            leases = dict((k, json.loads(v)) for k, v in conn.execute(
+                "SELECT key, value FROM state WHERE key LIKE 'repl-lease||%'"))
+        check(sorted(leases) == [f"repl-lease||scores||{i}" for i in range(PLACE_SHARDS)],
+              f"the meta file's leases {sorted(leases)}")
 
         # 4. reads at the live epoch pass; at a stale one, 409 with the live one
         for epoch, want in (("1", 200), ("0", 409)):
@@ -3382,15 +3615,34 @@ async def _placement_phase(data: Path) -> dict:
             check(time.monotonic() < deadline, f"no placement sweep after the burst: {doc}")
             await asyncio.sleep(0.25)
         entry = app_doc["stores"]["scores"]
+        leaders = entry["leaders"]
         check(doc["reshard"] is True and entry["epoch"] == 1 and entry["shards"] == PLACE_SHARDS
               and sorted(r["shard"] for r in entry["ranking"]) == list(range(PLACE_SHARDS))
-              and all(r["rate"] > 0 for r in entry["ranking"]) and "plan" in entry,
-              f"/admin/placement {entry}")
+              and all(r["rate"] > 0 for r in entry["ranking"]) and "plan" in entry
+              and sorted(leaders) == [str(i) for i in range(PLACE_SHARDS)]
+              and all(leases[f"repl-lease||scores||{i}"]["owner"] == leaders[str(i)]
+                      for i in range(PLACE_SHARDS)), f"/admin/placement {entry}")
         shards_out, verb_s = _verb_run(env, "shards", "--registry-file", str(registry))
         lines = shards_out.splitlines()
+        shard_lines = [x for x in lines if x.startswith("  shard ")]
         check(lines[0] == f"{APP_ID}/scores: epoch 1, {PLACE_SHARDS} shards, 1 replica(s) "
-                          "reporting" and len([x for x in lines if x.startswith("  shard ")])
-              == PLACE_SHARDS, f"shards printed {shards_out}")
+                          "reporting" and len(shard_lines) == PLACE_SHARDS
+              and all(x.split(":")[0] == f"  shard {i}" and x.endswith(f" @ {leaders[str(i)]}")
+                      for i, x in enumerate(sorted(shard_lines))), f"shards printed {shards_out}")
+        status, _, body = await _http(sidecar, "GET", "/v1.0/metadata")
+        replica_metrics = json.loads(body)["metrics"]
+        replica_records = _repl_records(replica_metrics)
+        commits = replica_metrics.get("state_commit_seconds_count{store=scores}", 0)
+        waits = replica_metrics.get("state_queue_wait_seconds_count{store=scores}", 0)
+        replica_store = {
+            "commits": commits, "queued_writes": waits,
+            "commit_ms_mean": 1e3 * replica_metrics.get(
+                "state_commit_seconds_sum{store=scores}", 0) / max(commits, 1),
+            "commit_ms_max": 1e3 * replica_metrics.get("state_commit_seconds_max{store=scores}", 0),
+            "queue_wait_ms_mean": 1e3 * replica_metrics.get(
+                "state_queue_wait_seconds_sum{store=scores}", 0) / max(waits, 1)}
+        check(replica_records >= (PLACE_REPLICAS - 1) * PLACE_EVENTS,
+              f"the replica shipped {replica_records} records")
 
         # 8. SIGTERM: the replica's clean stop logs its launches
         last_stats = await stats(app_port)
@@ -3409,14 +3661,24 @@ async def _placement_phase(data: Path) -> dict:
               f"B1 launches {counted} != expected {expected} for pid {pid}")
         check(all(v == 0 for k, v in counted[pid].items() if k != "flash_fwd"),
               f"the replica launched a backward or ring kernel: {counted}")
+        repl_out, _ = _verb_run(env, "repl", str(data / "scores.db"))
+        repl_lines = repl_out.splitlines()
+        check(len(repl_lines) == PLACE_SHARDS * (1 + PLACE_REPLICAS)
+              and all(any(x.startswith(f"scores shard {i}: leader {leaders[str(i)]} (epoch 1, ")
+                          for x in repl_lines) for i in range(PLACE_SHARDS))
+              and len([x for x in repl_lines if re.fullmatch(r"  r\d: hwm \d+ epoch 1", x)])
+              == PLACE_SHARDS * PLACE_REPLICAS, f"repl printed {repl_out}")
 
-        # 9. an online split in this process, a writer scoring on the card
+        # 9. in this process, a writer scoring on the card: a plain sharded
+        # store split, then replica sets
         reset_counts()
-        split = await _online_split(data)
+        plain = await _plain_split(data)
+        split = await _in_process_replica_sets(data)
         split_launches = counts()["flash_fwd"]
-        check(split_launches == SERVED.n_layers * split["batches"],
-              f"the split's writer launched B1 {split_launches} times, not "
-              f"{SERVED.n_layers} × {split['batches']}")
+        batches = plain["batches"] + split["batches"]
+        check(split_launches == SERVED.n_layers * batches,
+              f"the in-process writers launched B1 {split_launches} times, not "
+              f"{SERVED.n_layers} × {batches}")
 
         # the stored scores against the scorer's math in this process
         stored = {}
@@ -3442,8 +3704,12 @@ async def _placement_phase(data: Path) -> dict:
                 "keys_per_shard": [len(ks) for ks in per_shard], "stale_409s": stale,
                 "transaction_ms": txn_ms, "query_pages": len(page_s),
                 "query_ms_per_page": _p50_max_ms(page_s),
-                "placement": {"ranking": entry["ranking"], "plan": entry["plan"]},
-                "shards_verb_s": verb_s, "shards_verb": lines, "split": split,
+                "members": PLACE_REPLICAS, "records_replicated": replica_records,
+                "replica_store": replica_store,
+                "placement": {"ranking": entry["ranking"], "plan": entry["plan"],
+                              "leaders": leaders},
+                "shards_verb_s": verb_s, "shards_verb": lines, "repl_verb": repl_lines,
+                "plain_split": plain, "replica_sets": split,
                 "split_flash_launches": split_launches, "worst_confidence_err": worst,
                 "after_stop": after, "launches": {str(pid): counted[pid]["flash_fwd"]},
                 "expected_launches": {str(pid): expected}}
@@ -3463,10 +3729,11 @@ async def _placement_phase(data: Path) -> dict:
 
 
 def phase_placement(smi: str) -> int:
-    """The scorer's ``scores`` store on four shards behind its sidecar under
-    ``python -m tasksrunner_torch run`` with the placement loop, then an
-    online split in this process: returns B1's launches in the replica and
-    in the split's writer."""
+    """The scorer's ``scores`` store on four shards of three members behind
+    its sidecar under ``python -m tasksrunner_torch run`` with the
+    placement loop, then a handoff, a failover and an online split over
+    replica sets in this process: returns B1's launches in the replica and
+    in the in-process writer."""
     started = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-placement-") as data:
         result = asyncio.run(_placement_phase(Path(data)))

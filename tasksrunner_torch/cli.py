@@ -15,8 +15,11 @@
 * ``restart``, ``logs``, ``scale``, ``update``, ``revisions APP_ID``: the
   running orchestrator's admin API, found through ``orchestrator.json``
   beside ``--registry-file``;
-* ``shards``: each sharded store's routing epoch, shard ranking,
-  migration and rebalance plan from the orchestrator's ``/admin/placement``;
+* ``shards``: each sharded store's routing epoch, shard ranking (with
+  each shard's leader for replica sets), migration and rebalance plan
+  from the orchestrator's ``/admin/placement``;
+* ``repl DATABASE [--json]``: a replicated store's shard leases and its
+  members' positions, read from its sqlite files;
 * ``ps`` and ``stop APP_ID``: the registry file's replicas probed, or
   sent SIGTERM;
 * ``deploy validate|what-if|apply|down MANIFEST``: an environment
@@ -40,8 +43,8 @@
 * ``dlq list|show|requeue|purge COMPONENT [TOPIC]``: the dead letters of
   a broker's consumer group or of a queue binding.
 
-``repl``, ``actors``, ``workflows``, ``chaos``, ``lint`` and ``verify`` are
-refused: their modules are not ported yet (ROADMAP A20b, A21, A23, A27).
+``actors``, ``workflows``, ``chaos``, ``lint`` and ``verify`` are refused:
+their modules are not ported yet (ROADMAP A21, A23, A27).
 The printed lines and exit codes are the JAX verbs'.
 
 ``host`` and ``sidecar`` apply the ``kind: Resiliency`` documents of
@@ -407,9 +410,10 @@ def _cmd_shards(args) -> None:
             print(f"{app_id}/{store}: epoch {entry.get('epoch')}, {entry.get('shards')} shards, "
                   f"{entry.get('replicas_reporting')} replica(s) reporting{status}")
             assignment = entry.get("assignment") or {}
+            leaders = entry.get("leaders") or {}
             for row in entry.get("ranking") or []:
                 shard = row.get("shard")
-                host = assignment.get(str(shard)) or "local"
+                host = assignment.get(str(shard)) or leaders.get(str(shard)) or "local"
                 heat = "HOT" if row.get("hot") else "ok"
                 print(f"  shard {shard}: rank {row.get('rank')}, {row.get('rate')} ops/s "
                       f"[{heat}] @ {host}")
@@ -420,6 +424,63 @@ def _cmd_shards(args) -> None:
     if not shown:
         print("no sharded stores reporting placement (stores with shards > 1 publish it via "
               "sidecar metadata)")
+
+
+def _cmd_repl(args) -> None:
+    """Each shard's lease (leader, epoch, pid, seconds left) from the
+    store's meta file and each member's position from its ``repl_meta``,
+    read from the files alone: with or without a running store."""
+    import sqlite3
+
+    from tasksrunner_torch.state.replication import MAX_REPLICAS, _member_path, _meta_path
+
+    base = args.database
+    meta = _meta_path(base)
+    if meta == ":memory:" or not pathlib.Path(meta).is_file():
+        raise SystemExit(f"no replication meta database next to {base} (expected {meta}) — is "
+                         "the store configured with replicas > 1?")
+    con = sqlite3.connect(meta)
+    try:
+        leases = con.execute(
+            "SELECT key, value FROM state WHERE key LIKE 'repl-lease||%'").fetchall()
+    finally:
+        con.close()
+    if not leases:
+        raise SystemExit(f"{meta} holds no shard leases yet — no leader has started")
+    now = time.time()
+    shard_count = 1 + max(int(key.split("||")[2]) for key, _ in leases)
+    out = []
+    for key, raw in sorted(leases):
+        _, name, shard = key.split("||")
+        rec = json.loads(raw)
+        members = []
+        for m in range(MAX_REPLICAS):
+            mpath = _member_path(base, int(shard), m, shard_count)
+            if not pathlib.Path(mpath).is_file():
+                continue
+            mcon = sqlite3.connect(mpath)
+            try:
+                row = mcon.execute("SELECT hwm, epoch FROM repl_meta WHERE id = 1").fetchone()
+            except sqlite3.OperationalError:  # a file from before replication
+                row = None
+            finally:
+                mcon.close()
+            if row is not None:
+                members.append({"member": f"r{m}", "hwm": row[0], "epoch": row[1]})
+        out.append({"store": name, "shard": int(shard), "leader": rec.get("owner"),
+                    "epoch": rec.get("epoch"), "pid": rec.get("pid"),
+                    "lease_seconds_left": round(rec.get("expires", 0.0) - now, 2),
+                    "members": members})
+    if args.json:
+        print(json.dumps({"replication": out}, indent=2))
+        return
+    for entry in out:
+        left = entry["lease_seconds_left"]
+        state = "EXPIRED" if left <= 0 else f"{left:.1f}s left"
+        print(f"{entry['store']} shard {entry['shard']}: leader {entry['leader']} (epoch "
+              f"{entry['epoch']}, pid {entry['pid']}, lease {state})")
+        for m in entry["members"]:
+            print(f"  {m['member']}: hwm {m['hwm']} epoch {m['epoch']}")
 
 
 def _cmd_revisions(args) -> None:
@@ -1073,7 +1134,7 @@ def _cmd_dlq(args) -> None:
 
 
 #: the verbs whose modules are not ported yet, with their ROADMAP items
-NOT_PORTED = {"repl": "A20b", "actors": "A21", "workflows": "A21",
+NOT_PORTED = {"actors": "A21", "workflows": "A21",
               "chaos": "A23", "lint": "A27", "verify": "A27"}
 
 
@@ -1150,6 +1211,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--registry-file", **registry)
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.set_defaults(fn=_cmd_shards)
+
+    p = sub.add_parser("repl", help="replication status of a replicated store (leases, "
+                                    "per-member positions) straight from its sqlite files")
+    p.add_argument("database", help="base sqlite path of the store (e.g. data/tasks.db)")
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=_cmd_repl)
 
     p = sub.add_parser("logs", help="the newest output of an app's replicas")
     p.add_argument("app_id")

@@ -16,7 +16,11 @@ one surface (``save_state``, ``get_state``, ``query_state``,
   else 3500. ``tr-api-token`` goes with
   every call when ``TASKSRUNNER_API_TOKEN`` is set, and a ``traceparent``
   child of the ambient trace. Requests go over asyncio streams, never a
-  blocking client on the event loop.
+  blocking client on the event loop. A state call names the routing
+  epoch its store last answered with (``x-tasksrunner-placement-epoch``);
+  on a 409 that carries the store's epoch it keeps that one and retries
+  once, and a second such 409 raises
+  :class:`~tasksrunner_torch.errors.PlacementEpochError`.
 * :meth:`AppClient.direct` goes through an in-process host
   (:class:`~tasksrunner_torch.hosting.InProcHost`): state, publish and
   invoke, no queries and no bindings.
@@ -34,7 +38,8 @@ from typing import Any
 from urllib.parse import quote
 
 from tasksrunner_torch.bindings.base import BindingResponse
-from tasksrunner_torch.errors import InvocationError
+from tasksrunner_torch.errors import InvocationError, PlacementEpochError
+from tasksrunner_torch.state.placement import PLACEMENT_EPOCH_HEADER
 from tasksrunner_torch.tracing import TRACEPARENT_HEADER, outgoing_headers
 
 DEFAULT_SIDECAR_PORT = 3500
@@ -104,6 +109,8 @@ class _HTTPTransport:
     def __init__(self, host: str, port: int | None) -> None:
         self.host = host
         self._port = port
+        #: the routing epoch each store last answered with
+        self._placement_epochs: dict[str, int] = {}
 
     async def _request(self, method: str, path: str, *, headers: dict[str, str] | None = None,
                        body: bytes = b"") -> tuple[int, dict[str, str], bytes]:
@@ -119,11 +126,25 @@ class _HTTPTransport:
         except (OSError, asyncio.IncompleteReadError) as exc:
             raise InvocationError(f"sidecar unreachable at {self.host}:{port}: {exc}") from exc
 
-    async def _checked(self, context: str, method: str, path: str,
-                       body: bytes = b"") -> tuple[int, bytes]:
-        headers = {"content-type": "application/json"} if body else None
-        status, reply_headers, payload = await self._request(method, path, headers=headers,
-                                                             body=body)
+    async def _checked(self, context: str, method: str, path: str, body: bytes = b"", *,
+                       store: str | None = None) -> tuple[int, bytes]:
+        """The request, raising on an error status; a state call
+        (``store`` given) with the placement epoch's handshake."""
+        headers = {"content-type": "application/json"} if body else {}
+        known = None if store is None else self._placement_epochs.get(store)
+        if known is not None:
+            headers[PLACEMENT_EPOCH_HEADER] = str(known)
+        for _ in range(2):
+            status, reply_headers, payload = await self._request(method, path, headers=headers,
+                                                                 body=body)
+            fresh = reply_headers.get(PLACEMENT_EPOCH_HEADER)
+            if store is None or status != 409 or fresh is None:
+                break
+            self._placement_epochs[store] = int(fresh)
+            headers[PLACEMENT_EPOCH_HEADER] = fresh
+        else:  # the epoch moved again while we retried
+            raise PlacementEpochError(f"store {store!r} placement epoch advanced twice during "
+                                      "one call", current_epoch=int(fresh))
         if status >= 300:
             exc = InvocationError(f"{context}: {status} {payload[:200]!r}", status=status)
             exc.retry_after = retry_after_seconds(status, reply_headers)
@@ -132,18 +153,18 @@ class _HTTPTransport:
 
     async def save_state(self, store: str, key: str, value: Any) -> None:
         await self._checked(f"save state {store}", "POST", f"/v1.0/state/{quote(store)}",
-                            json.dumps([{"key": key, "value": value}]).encode())
+                            json.dumps([{"key": key, "value": value}]).encode(), store=store)
 
     async def get_state(self, store: str, key: str) -> Any:
         status, payload = await self._checked(
             f"get state {store}", "GET",
-            f"/v1.0/state/{quote(store)}/{quote(key, safe='')}")
+            f"/v1.0/state/{quote(store)}/{quote(key, safe='')}", store=store)
         return json.loads(payload) if status == 200 and payload else None
 
     async def query_state(self, store: str, query: dict) -> dict:
         _, payload = await self._checked(f"query state {store}", "POST",
                                          f"/v1.0/state/{quote(store)}/query",
-                                         json.dumps(query).encode())
+                                         json.dumps(query).encode(), store=store)
         return json.loads(payload)
 
     async def publish(self, pubsub: str, topic: str, data: Any) -> None:

@@ -38,6 +38,9 @@ DECLARED = frozenset({
     "TASKSRUNNER_ADMISSION_MAX_LAG_SECONDS",  # float, 0.25: event-loop lag at score 1.0
     "TASKSRUNNER_ADMISSION_MAX_QUEUE_DEPTH",  # int, 512: write-queue depth at score 1.0
     "TASKSRUNNER_REPL_LEASE_SECONDS",  # float, 5: a lease's life (state/lease.py)
+    "TASKSRUNNER_REPL_ACK_TIMEOUT_SECONDS",  # float, 10: a write's wait for its ack quorum
+    "TASKSRUNNER_REPL_LOG_RETAIN",  # int, 4096: records a member keeps; past them, a snapshot
+    "TASKSRUNNER_REPL_MAX_LAG_RECORDS",  # int, 256: a follower read's lag bound
     "TASKSRUNNER_RESHARD",         # bool, off: the orchestrator's placement loop
     "TASKSRUNNER_RESHARD_HEAT_THRESHOLD",  # float, 50: EWMA writes/s at which a shard is hot
     "TASKSRUNNER_RESHARD_HYSTERESIS_SECONDS",  # float, 10: how long hot before it ranks hot

@@ -77,6 +77,55 @@ class CrossShardAtomicityError(StateError):
     http_status = 500
 
 
+class ReplicationError(StateError):
+    """A replica set's operation failed (:mod:`tasksrunner_torch.state.replication`)."""
+
+    http_status = 500
+
+
+class NotLeaderError(ReplicationError):
+    """No member holds the shard's lease, or leadership moved during the
+    call. Nothing was attempted; the caller finds the leader again and
+    retries (the replica set's facade does so once)."""
+
+    http_status = 409
+
+
+class ReplicaFencedError(ReplicationError):
+    """A leader's commit refused by epoch fencing: a follower promoted at
+    a higher epoch, so the old leader's record cannot reach its quorum
+    and the write was never acknowledged."""
+
+    http_status = 409
+
+
+class ReplicationQuorumError(ReplicationError):
+    """A write did not reach its ``ackQuorum`` within the ack timeout. It
+    is committed on the leader, its durability on the followers unknown:
+    the caller treats it as not acknowledged (a retry is safe)."""
+
+    http_status = 503
+
+
+class ReplicationGapError(ReplicationError):
+    """A follower's answer to records that do not extend its log (a
+    ``seq`` past ``hwm + 1``, or a fenced ex-leader's ``diverged``
+    suffix): the leader catches it up from ``hwm``, or by a snapshot.
+    Never reaches a caller of the state API."""
+
+    def __init__(self, message: str, *, hwm: int, diverged: bool = False) -> None:
+        super().__init__(message)
+        self.hwm = hwm
+        self.diverged = diverged
+
+
+class StaleReadError(ReplicationError):
+    """A read addressed to a follower that lags past ``maxLagRecords``
+    (the facade's own follower reads go to the leader instead)."""
+
+    http_status = 503
+
+
 class PlacementEpochError(StateError):
     """A state request named a routing epoch that is not the store's
     placement epoch (:mod:`tasksrunner_torch.state.placement`). Nothing

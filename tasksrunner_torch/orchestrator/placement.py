@@ -5,8 +5,8 @@ Every sharded store publishes its epoch, assignment and per-shard heat in
 its sidecar's ``/v1.0/metadata`` (``placement``). A
 :class:`PlacementController` sweeps those documents over an app's
 replicas every 2 s, merges them into one view a store (the freshest
-epoch's map, the rates summed, the hot shards and hot keys of every
-replica) and keeps a rebalance plan beside a hot/cold ranking. The plan
+epoch's map and shard leaders, the rates summed, the hot shards and hot
+keys of every replica) and keeps a rebalance plan beside a hot/cold ranking. The plan
 is advice: only the process that owns a store can hold its write pause,
 so a migration or a split runs there (``ShardedStateStore.migrate_shard``
 / ``split_shard``). ``/admin/placement`` and ``python -m
@@ -96,8 +96,7 @@ class PlacementController:
                 "epoch": int(freshest.get("epoch", 0)),
                 "shards": int(freshest.get("shards", 0)),
                 "assignment": freshest.get("assignment") or {},
-                # replica-set shard leaders: none until replica sets are ported
-                "leaders": {},
+                "leaders": freshest.get("leaders") or {},
                 "migration": freshest.get("migration"),
                 "replicas_reporting": len(pdocs),
                 "ranking": rank_shards(rates),

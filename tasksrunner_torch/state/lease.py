@@ -1,7 +1,8 @@
 """An epoch-fenced lease over one record of a state store: the port of
 ``Lease`` and ``lease_seconds_default`` in
-``tasksrunner/state/replication.py`` (the rest of that module, shard
-replication, waits for ROADMAP A20).
+``tasksrunner/state/replication.py`` (the rest of that module is
+:mod:`tasksrunner_torch.state.replication`, whose shard leaders hold
+these leases).
 
 The record, ``{owner, epoch, expires, host, pid, registered_at}``, is the
 JAX one and is only ever replaced by an etag-guarded write, so of two
@@ -10,7 +11,8 @@ contenders for a takeover exactly one wins; each change of owner bumps
 is dead (:meth:`~tasksrunner_torch.invoke.resolver.NameResolver.local_pid_dead`),
 so a killed holder is taken over without waiting out its lease. The
 record and the sqlite file are the JAX package's, so a lease one package
-holds fences the other. The orchestrator's control plane is one.
+holds fences the other. The orchestrator's control plane is one holder,
+a replica set's leader another.
 """
 
 from __future__ import annotations

@@ -21,17 +21,23 @@ facade over N independent child stores (N writer threads, N WALs).
   operation passes a barrier that is open except during a flip's final
   drain; a caller naming a stale epoch is refused (:meth:`check_epoch`).
   :meth:`ShardedStateStore.split_shard` grows the ring online and
-  :meth:`ShardedStateStore.migrate_shard` moves a shard to another
-  store: keys stream while writes go on, a dirty-key tap is drained round
-  by round, and the last round, the structural swap and the epoch's
-  advance run under the pause (:meth:`ShardedStateStore._fenced_flip`).
+  :meth:`ShardedStateStore.migrate_shard` moves a shard: to another
+  store with ``target=`` (keys stream while writes go on, a dirty-key tap
+  is drained round by round, and the last round, the structural swap and
+  the epoch's advance run under the pause,
+  :meth:`ShardedStateStore._fenced_flip`), or, for a replica set
+  (:mod:`tasksrunner_torch.state.replication`), to another member with
+  ``member=``: the record stream is the copy, and the leadership handoff
+  runs under the pause.
+* **Replica-set children.** The placement document names each shard's
+  leader (``leaders``) and this process's member (``local_member``), and
+  an online split makes the new shard a replica set of the same size.
 
 The tap notes a key once its write has returned (the JAX facade notes it
 before the write: a catch-up read between the two copies the old value
-and drops the key from the tap). Not ported: replica-set children
-(``migrate_shard(member=…)``, the shard leaders and the local member in
-the placement document, ``locality_rank``; ROADMAP A20b) and chaos on
-the catch-up lane (A23).
+and drops the key from the tap); a ``member=`` handoff uses no tap. Not
+ported: ``locality_rank`` (ROADMAP A21, its one caller) and chaos on the
+catch-up lane (A23).
 """
 
 from __future__ import annotations
@@ -131,6 +137,8 @@ class ShardedStateStore:
         #: the epoched routing table; replaced whole by a flip
         self.placement = PlacementMap(shards=len(self._shards))
         self.heat = ShardHeatTracker(len(self._shards))
+        #: this process's member label; None: no locality known
+        self.local_member: str | None = None
         #: makes child N for an online split (the sqlite build sets it)
         self.child_factory: Callable[[int], Any] | None = None
         # the flip's barrier: open but for a flip's final drain; operations
@@ -306,11 +314,17 @@ class ShardedStateStore:
 
     def placement_doc(self) -> dict:
         """What the sidecar's metadata exports and the placement loop
-        merges: epoch, assignment, migration and each shard's heat."""
+        merges: epoch, assignment, migration, each shard's heat, the local
+        member and, for replica-set children, each shard's leader."""
         self.heat.sample()
         doc = self.placement.to_doc()
         doc["store"] = self.name
         doc["heat"] = self.heat.snapshot()
+        doc["local_member"] = self.local_member
+        leaders = {str(i): leader_of() for i, child in enumerate(self._shards)
+                   if (leader_of := getattr(child, "leader_member", None)) is not None}
+        if leaders:
+            doc["leaders"] = leaders
         metrics.set_gauge("placement_epoch", float(self.placement.epoch), store=self.name)
         for i, rate in enumerate(self.heat.rates()):
             metrics.set_gauge("shard_heat", rate, store=self.name, shard=i)
@@ -331,19 +345,21 @@ class ShardedStateStore:
     async def _stream_keys(self, keys: list[str], target) -> int:
         """Copy ``keys`` onto ``target`` from the children that hold them
         (the facade's barrier may be closed); a key gone meanwhile is
-        deleted there. Returns the keys copied."""
+        deleted there. Returns the keys copied. A chunk's writes go at
+        once, so the target's group commit folds them into a few
+        transactions: for a replica set a few records and quorum acks,
+        not one a key, or a writer outruns the copy."""
         moved = 0
         for start in range(0, len(keys), 256):
             by_shard: dict[int, list[str]] = {}
             for k in keys[start:start + 256]:
                 by_shard.setdefault(self.router.shard_of(k), []).append(k)
             for src, ks in by_shard.items():
-                for k, item in zip(ks, await self._shards[src].bulk_get(ks)):
-                    if item is None:
-                        await target.delete(k)
-                    else:
-                        await target.set(k, item.value)
-                        moved += 1
+                items = await self._shards[src].bulk_get(ks)
+                await asyncio.gather(*(target.delete(k) if item is None
+                                       else target.set(k, item.value)
+                                       for k, item in zip(ks, items)))
+                moved += sum(item is not None for item in items)
         if moved:
             metrics.inc("placement_keys_moved_total", moved, store=self.name)
         return moved
@@ -408,19 +424,18 @@ class ShardedStateStore:
 
     async def migrate_shard(self, shard: int, *, member: str | None = None,
                             target=None) -> dict:
-        """Move shard ``shard`` to the store ``target`` while it serves:
-        stream its keys, converge the tap, then swap the child and advance
-        the epoch under the pause, and close the old child. ``member=`` (a
-        replica set's leadership handoff) is not ported yet."""
+        """Move shard ``shard`` while it serves. ``target=``: stream its
+        keys to that store, converge the tap, then swap the child and
+        advance the epoch under the pause, and close the old child.
+        ``member=``: hand a replica set's leadership to that member."""
         if not 0 <= shard < len(self._shards):
             raise StateError(f"state store {self.name!r} has no shard {shard}")
         if (member is None) == (target is None):
             raise StateError(f"state store {self.name!r}: migrate_shard needs exactly one of "
                              "member= (replicated handoff) or target= (key streaming)")
-        if member is not None:
-            raise StateError(f"state store {self.name!r}: migrate_shard(member=...) is not "
-                             "ported yet (ROADMAP A20b)")
         async with self._reshard_lock:
+            if member is not None:
+                return await self._migrate_leadership(shard, member)
             old = self._shards[shard]
             of_shard = lambda k: self.router.shard_of(k) == shard  # noqa: E731
             status = {"kind": "move", "shard": shard, "target": target.name}
@@ -442,12 +457,38 @@ class ShardedStateStore:
                 self._dirty = None
                 self._publish_migration(None)
             try:
-                old.close()
+                await _aclose(old)
             except Exception:  # noqa: BLE001 - the swap has happened
                 logger.debug("placement: %s: retired source shard close failed", self.name,
                              exc_info=True)
             return {"action": "move", "shard": shard, "target": target.name,
                     "epoch": self.placement.epoch, "keys_moved": moved, "pause_seconds": pause}
+
+    async def _migrate_leadership(self, shard: int, member: str) -> dict:
+        """Wait until ``member`` has the leader's log (the stream moves
+        it), then hand it the lease under the pause: the writers are
+        quiesced, so the handoff finds nothing in flight."""
+        child = self._shards[shard]
+        transfer = getattr(child, "transfer_leadership", None)
+        if transfer is None:
+            raise StateError(f"state store {self.name!r}: shard {shard} is not replicated — "
+                             "migrate with an explicit target= store")
+        status = {"kind": "move", "shard": shard, "target": member}
+        try:
+            self._publish_migration({**status, "phase": "catchup"})
+            deadline = time.monotonic() + 30.0
+            while (lag := child.member_lag(member)) is None or lag > 0:
+                if time.monotonic() > deadline:
+                    raise StateError(f"state store {self.name!r}: shard {shard} catch-up "
+                                     f"toward {member} did not converge")
+                await asyncio.sleep(0.02)
+            self._publish_migration({**status, "phase": "flip"})
+            pause = await self._fenced_flip(lambda: transfer(member),
+                                            assignment={shard: member})
+        finally:
+            self._publish_migration(None)
+        return {"action": "move", "shard": shard, "target": member,
+                "epoch": self.placement.epoch, "pause_seconds": pause}
 
     async def split_shard(self) -> dict:
         """Grow the ring N → N+1 while it serves: make shard N with
@@ -495,12 +536,38 @@ class ShardedStateStore:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def _closing_order(self) -> list:
+        """The children, the one that owns the replica sets' shared lease
+        store last: a split's set must stop while that store is open."""
+        return sorted(self._shards, key=lambda child: getattr(child, "owns_meta", False))
+
     def close(self) -> None:
         first: BaseException | None = None
-        for child in self._shards:
+        for child in self._closing_order():
             try:
                 child.close()
             except Exception as exc:  # noqa: BLE001 - close the rest first
                 first = first or exc
         if first is not None:
             raise first
+
+    async def aclose(self) -> None:
+        """The children's own async close where they have one: a replica
+        set's leaders release their leases only there (``close`` is a
+        crash's equivalent)."""
+        first: BaseException | None = None
+        for child in self._closing_order():
+            try:
+                await _aclose(child)
+            except Exception as exc:  # noqa: BLE001 - close the rest first
+                first = first or exc
+        if first is not None:
+            raise first
+
+
+async def _aclose(store) -> None:
+    closer = getattr(store, "aclose", None)
+    if closer is not None:
+        await closer()
+    else:
+        store.close()

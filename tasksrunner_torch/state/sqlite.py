@@ -1,6 +1,6 @@
 """The durable sqlite state store: the port of ``tasksrunner/state/sqlite.py``
-(``SqliteStateStore``, its staged transactions and the sharded build)
-without replication.
+(``SqliteStateStore``, its staged transactions, the replication record
+stream and the sharded and replicated builds).
 
 The on-disk schema (``state(key, value, etag)`` and the store-wide etag
 sequence ``etag_seq``) and the value encoding (compact JSON, NaN
@@ -39,6 +39,23 @@ back in the other.
 * **Shards.** ``shards: N`` builds N stores on ``-shardN`` files behind a
   :class:`~tasksrunner_torch.state.sharding.ShardedStateStore`
   (:func:`build_sharded_store`); ``shards: 1`` is the plain store.
+* **The replication record stream.** A member of a replica set
+  (``replication=True``) also has the tables ``repl_log`` (one JSON
+  record a committed batch: its mutations, the etag sequence after it,
+  the leader's epoch) and ``repl_meta`` (the member's high-water mark and
+  epoch), the JAX schema. The record is written in the batch's own
+  transaction. With a replication session attached (``_repl``, the
+  leader's :class:`~tasksrunner_torch.state.replication.ShardReplicator`),
+  the batch's callers resolve only once the session has the record's ack
+  quorum, on the loop: the writer thread never waits for it. A member
+  without a session (a follower, or a leader that crashed or handed its
+  shard on) refuses a write with :class:`~tasksrunner_torch.errors.NotLeaderError`,
+  also one it committed just as its session went: no follower gets that
+  record, so it was never acked (the JAX store resolves it as a success).
+  The follower's side (:meth:`SqliteStateStore.apply_repl_records`,
+  :meth:`~SqliteStateStore.install_repl_snapshot`) keeps the read cache
+  in step. ``replicas: N`` builds the replica sets
+  (:func:`~tasksrunner_torch.state.replication.build_replicated_store`).
 
 The store sets the gauge ``state_write_queue_depth`` (an admission
 signal; a shard's carries a ``shard`` label) once per batch and observes
@@ -63,7 +80,11 @@ from tasksrunner_torch import spans
 from tasksrunner_torch._sqlite import begin_immediate, checkpoint_loop, resolve_futures
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec, metadata_bool, metadata_int
-from tasksrunner_torch.errors import ComponentError, EtagMismatch, QueryError, StateError
+from tasksrunner_torch.envflag import env_number
+from tasksrunner_torch.errors import (
+    ComponentError, EtagMismatch, NotLeaderError, QueryError, ReplicaFencedError,
+    ReplicationGapError, StateError,
+)
 from tasksrunner_torch.ids import hex8
 from tasksrunner_torch.metrics import metrics
 from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
@@ -86,8 +107,32 @@ CREATE TABLE IF NOT EXISTS etag_seq (
 INSERT OR IGNORE INTO etag_seq(id, n) VALUES (1, 0);
 """
 
+#: made only on a replica set's members, so a plain store's file stays as
+#: it was: the record stream and the member's position
+_REPL_SCHEMA = """
+CREATE TABLE IF NOT EXISTS repl_log (
+    seq    INTEGER PRIMARY KEY,
+    epoch  INTEGER NOT NULL,
+    record TEXT NOT NULL
+);
+CREATE TABLE IF NOT EXISTS repl_meta (
+    id    INTEGER PRIMARY KEY CHECK (id = 1),
+    hwm   INTEGER NOT NULL,
+    epoch INTEGER NOT NULL
+);
+INSERT OR IGNORE INTO repl_meta(id, hwm, epoch) VALUES (1, 0, 0);
+"""
+
 _SET_SQL = ("INSERT INTO state(key, value, etag) VALUES(?, ?, ?) "
             "ON CONFLICT(key) DO UPDATE SET value=excluded.value, etag=excluded.etag")
+
+#: records a member keeps in ``repl_log``; a follower further behind
+#: gets a snapshot
+DEFAULT_LOG_RETAIN = 4096
+
+
+def log_retain_default() -> int:
+    return int(env_number("TASKSRUNNER_REPL_LOG_RETAIN", DEFAULT_LOG_RETAIN))
 
 
 def _like_escape(prefix: str) -> str:
@@ -227,9 +272,14 @@ class SqliteStateStore:
 
     def __init__(self, name: str, path: str | pathlib.Path = ":memory:", *,
                  group_commit: bool = True, cache_size: int = 0,
-                 shard: int | None = None) -> None:
+                 shard: int | None = None, replication: bool = False) -> None:
         self.name = name
         self.path = str(path)
+        #: a replica set's member: each commit appends its record to
+        #: ``repl_log`` (the batch is the record, so group commit is on)
+        self.replication = bool(replication)
+        if self.replication:
+            group_commit = True
         #: this store's index in a sharded component, else None: it labels
         #: the queue-depth gauge and names the threads ``{name}.{shard}``
         self.shard = shard
@@ -248,7 +298,20 @@ class SqliteStateStore:
         if self._is_file:
             self._conn.execute("PRAGMA wal_autocheckpoint=0")
         self._conn.executescript(_SCHEMA)
+        if self.replication:
+            self._conn.executescript(_REPL_SCHEMA)
         self._conn.commit()
+
+        #: the leader's replication session, when this member leads
+        self._repl: Any = None
+        # the position mirrors repl_meta: written on the writer thread,
+        # read from the loop (lag, bounds), so a lock keeps the pair whole
+        self._repl_lock = threading.Lock()
+        self._repl_retain = max(1, log_retain_default())
+        self._repl_hwm = self._repl_epoch = 0
+        if self.replication:
+            self._repl_hwm, self._repl_epoch = self._conn.execute(
+                "SELECT hwm, epoch FROM repl_meta WHERE id = 1").fetchone()
 
         # the writer thread owns _conn; a file gets a reader thread with
         # its own connection, so reads never queue behind a flush. An
@@ -345,6 +408,70 @@ class SqliteStateStore:
             return self._apply_delete(cur, op[1], op[2], mutations)
         return self._apply_transact(cur, op[1], mutations, alloc)
 
+    # -- the record stream, the leader's side (writer thread) -------------
+
+    def _repl_append(self, cur, mutations: list[tuple], tp: str | None = None) -> dict | None:
+        """Append the record of ``mutations`` inside their transaction,
+        so both commit or neither. It carries the etag sequence after
+        the batch (a promoted follower goes on from there), the epoch
+        (lower ones are refused downstream) and the first writer's
+        traceparent (the ship, apply and ack spans join its trace)."""
+        if not self.replication or not mutations:
+            return None
+        seq = self._repl_hwm + 1
+        (etag_n,) = cur.execute("SELECT n FROM etag_seq WHERE id = 1").fetchone()
+        record = {"seq": seq, "epoch": self._repl_epoch, "ops": mutations, "etag_n": etag_n,
+                  "ts": time.time()}
+        if tp is not None:
+            record["tp"] = tp
+        cur.execute("INSERT INTO repl_log(seq, epoch, record) VALUES (?, ?, ?)",
+                    (seq, self._repl_epoch, json.dumps(record, separators=(",", ":"))))
+        cur.execute("UPDATE repl_meta SET hwm = ? WHERE id = 1", (seq,))
+        # a bounded log: a follower further behind gets a snapshot
+        cur.execute("DELETE FROM repl_log WHERE seq <= ?", (seq - self._repl_retain,))
+        return record
+
+    def _repl_committed(self, record: dict | None) -> None:
+        if record is not None:
+            with self._repl_lock:
+                self._repl_hwm = record["seq"]
+
+    def _not_leader(self) -> NotLeaderError:
+        return NotLeaderError(f"state store {self.name!r}: this member does not lead its shard; "
+                              "the write was not acked — retry against the leader")
+
+    def _repl_fail_fast(self) -> BaseException | None:
+        """A member that does not lead, or was fenced, refuses a write
+        before touching the file: its record could reach no quorum and
+        would only lengthen the suffix a resync throws away."""
+        if not self.replication:
+            return None
+        if self._repl is None:
+            return self._not_leader()
+        if self._repl.fenced:
+            return ReplicaFencedError(f"state store {self.name!r}: this member lost shard "
+                                      "leadership (epoch fenced); retry against the new leader")
+        return None
+
+    def _resolve_after_quorum(self, rec: dict | None, pairs: list[tuple]) -> None:
+        """Resolve (loop, future, value, error) rows now, or, with a
+        replication session, once ``rec`` has its ack quorum; a row
+        refused by its own etag keeps its own error. A record committed
+        after the session went (the member crashed or handed its shard
+        on under the writer thread) fails its rows with
+        :class:`NotLeaderError`: nothing ships it, so it is not acked."""
+        repl = self._repl
+        if rec is None:
+            resolve_futures(pairs)
+            return
+        if repl is None:
+            err = self._not_leader()
+            resolve_futures([(loop, fut, None, exc or err) for loop, fut, _, exc in pairs])
+            return
+        repl.on_commit(rec, lambda: resolve_futures(pairs),
+                       lambda qexc: resolve_futures([(loop, fut, None, exc or qexc)
+                                                     for loop, fut, _, exc in pairs]))
+
     # -- group commit (writer thread) --------------------------------------
 
     def _flush_writes(self) -> None:
@@ -378,6 +505,10 @@ class SqliteStateStore:
     def _exec_batch(self, batch: list[_PendingWrite]) -> None:
         """One BEGIN IMMEDIATE … COMMIT for the batch; an op refused by
         its etag fails its caller alone."""
+        fast = self._repl_fail_fast()
+        if fast is not None:
+            resolve_futures([(row.loop, row.future, None, fast) for row in batch])
+            return
         results: list[tuple[Any, BaseException | None]] = [(None, None)] * len(batch)
         mutations: list[tuple] = []
         batch_start = time.monotonic()
@@ -410,6 +541,8 @@ class SqliteStateStore:
                     except EtagMismatch as exc:
                         results[i] = (None, exc)
                     i += 1
+                rec = self._repl_append(cur, mutations, tp=next(
+                    (row.ctx.header for row in batch if row.ctx is not None), None))
                 self._conn.commit()
             except BaseException:
                 self._conn.rollback()
@@ -418,14 +551,15 @@ class SqliteStateStore:
             # the whole batch failed (lock deadline, disk): each op alone
             for row in batch:
                 try:
-                    value = self._exec_single(row.op)
+                    value, rec = self._exec_single_repl(row.op)
                 except BaseException as exc:  # noqa: BLE001 - the caller's error
                     resolve_futures([(row.loop, row.future, None, exc)])
                 else:
-                    resolve_futures([(row.loop, row.future, value, None)])
+                    self._resolve_after_quorum(rec, [(row.loop, row.future, value, None)])
             return
         self._dirty[0] = True
         self._cache_apply(mutations)
+        self._repl_committed(rec)
         end = time.monotonic()
         metrics.observe("state_commit_seconds", end - batch_start, store=self.name)
         if spans.active():
@@ -439,24 +573,32 @@ class SqliteStateStore:
                         attrs={"queue_wait": batch_start - row.enqueued,
                                "service": end - batch_start, "store": self.name},
                         trace_id=row.ctx.trace_id, span_id=hex8(), parent_id=row.ctx.span_id)
-        resolve_futures([(row.loop, row.future, value, exc)
-                         for row, (value, exc) in zip(batch, results)])
+        self._resolve_after_quorum(rec, [(row.loop, row.future, value, exc)
+                                         for row, (value, exc) in zip(batch, results)])
 
     def _exec_single(self, op: tuple) -> Any:
         """One op in its own transaction (writer thread)."""
+        return self._exec_single_repl(op)[0]
+
+    def _exec_single_repl(self, op: tuple) -> tuple[Any, dict | None]:
+        fast = self._repl_fail_fast()
+        if fast is not None:
+            raise fast
         mutations: list[tuple] = []
         cur = self._conn.cursor()
         begin_immediate(cur)
         try:
             value = self._apply_op(cur, op, mutations,
                                    lambda: str(self._reserve_etags(cur, 1)))
+            rec = self._repl_append(cur, mutations)
             self._conn.commit()
         except BaseException:
             self._conn.rollback()
             raise
         self._dirty[0] = True
         self._cache_apply(mutations)
-        return value
+        self._repl_committed(rec)
+        return value, rec
 
     async def _submit_write(self, op: tuple) -> Any:
         loop = asyncio.get_running_loop()
@@ -554,7 +696,11 @@ class SqliteStateStore:
 
     def _stage_job(self, ops: list[tuple], txn: StagedTransaction) -> None:
         """Writer thread: BEGIN, check and apply, park on the decision,
-        then COMMIT or ROLLBACK."""
+        then COMMIT (with the record appended) or ROLLBACK."""
+        fast = self._repl_fail_fast()
+        if fast is not None:
+            txn._post(txn._staged, None, fast)
+            return
         cur = self._conn.cursor()
         mutations: list[tuple] = []
         try:
@@ -574,18 +720,156 @@ class SqliteStateStore:
         try:
             if decision == "commit":
                 try:
+                    rec = self._repl_append(cur, mutations)
                     self._conn.commit()
                 except BaseException:
                     self._conn.rollback()
                     raise
                 self._dirty[0] = True
                 self._cache_apply(mutations)
-                txn._post(txn._done, "committed", None)
+                self._repl_committed(rec)
+                self._resolve_after_quorum(rec, [(txn._loop, txn._done, "committed", None)])
             else:
                 self._conn.rollback()
                 txn._post(txn._done, "rolledback", None)
         except BaseException as exc:  # noqa: BLE001 - a disk-level failure
             txn._post(txn._done, None, exc)
+
+    # -- the record stream: the follower's side and the leader's catch-up --
+    # (writer thread: each runs in turn with the flushes on one connection,
+    # so a snapshot never sees half a batch)
+
+    def apply_repl_records(self, records: list[dict]) -> int:
+        """Apply a leader's records in order; the new high-water mark. A
+        record below this member's epoch is a zombie's
+        (:class:`ReplicaFencedError`); one at a higher epoch whose seq is
+        already held means our own suffix diverged (a ``diverged``
+        :class:`ReplicationGapError`: send a snapshot); a duplicate at the
+        same epoch is skipped; a seq past hwm + 1 is a gap."""
+        if not records:
+            return self._repl_hwm
+        cur = self._conn.cursor()
+        mutations: list[tuple] = []
+        hwm, epoch = self._repl_hwm, self._repl_epoch
+        max_etag_n = 0
+        begin_immediate(cur)
+        try:
+            for rec in records:
+                seq, rec_epoch = int(rec["seq"]), int(rec["epoch"])
+                if rec_epoch < epoch:
+                    raise ReplicaFencedError(f"record epoch {rec_epoch} is behind member epoch "
+                                             f"{epoch} (fenced ex-leader)")
+                if seq <= hwm:
+                    if rec_epoch > epoch:
+                        raise ReplicationGapError(
+                            f"seq {seq} already held at epoch {epoch} but offered at epoch "
+                            f"{rec_epoch}: diverged suffix", hwm=hwm, diverged=True)
+                    continue
+                if seq != hwm + 1:
+                    raise ReplicationGapError(f"record seq {seq} does not extend hwm {hwm}",
+                                              hwm=hwm)
+                for m in rec["ops"]:
+                    if m[0] == "set":
+                        cur.execute(_SET_SQL, (m[1], m[2], m[3]))
+                    else:
+                        cur.execute("DELETE FROM state WHERE key = ?", (m[1],))
+                    mutations.append(tuple(m))
+                cur.execute("INSERT OR REPLACE INTO repl_log(seq, epoch, record) VALUES (?, ?, ?)",
+                            (seq, rec_epoch, json.dumps(rec, separators=(",", ":"))))
+                hwm, epoch = seq, rec_epoch
+                max_etag_n = max(max_etag_n, int(rec.get("etag_n", 0)))
+            cur.execute("UPDATE repl_meta SET hwm = ?, epoch = ? WHERE id = 1", (hwm, epoch))
+            cur.execute("DELETE FROM repl_log WHERE seq <= ?", (hwm - self._repl_retain,))
+            if max_etag_n:
+                # never backwards: a promoted follower's etags must be
+                # fresher than any the old leader gave out
+                cur.execute("UPDATE etag_seq SET n = ? WHERE id = 1 AND n < ?",
+                            (max_etag_n, max_etag_n))
+            self._conn.commit()
+        except BaseException:
+            self._conn.rollback()
+            raise
+        with self._repl_lock:
+            self._repl_hwm, self._repl_epoch = hwm, epoch
+        self._dirty[0] = True
+        self._cache_apply(mutations)
+        return hwm
+
+    def read_repl_log(self, after_seq: int, limit: int = 512) -> list[dict] | None:
+        """The records after ``after_seq`` in order, or None when the log
+        was pruned past it (the leader sends a snapshot instead)."""
+        if after_seq >= self.repl_position()[0]:
+            return []
+        rows = self._conn.execute("SELECT record FROM repl_log WHERE seq > ? ORDER BY seq LIMIT ?",
+                                  (after_seq, limit)).fetchall()
+        records = [json.loads(r[0]) for r in rows]
+        if not records or records[0]["seq"] != after_seq + 1:
+            return None
+        return records
+
+    def read_repl_epoch_at(self, seq: int) -> int | None:
+        """The epoch of this member's record ``seq``, None when it holds
+        none: the leader's log-matching check on a follower's hwm."""
+        row = self._conn.execute("SELECT epoch FROM repl_log WHERE seq = ?", (seq,)).fetchone()
+        return None if row is None else int(row[0])
+
+    def read_repl_snapshot(self) -> dict:
+        """Every row at the current position."""
+        rows = self._conn.execute("SELECT key, value, etag FROM state ORDER BY key").fetchall()
+        (etag_n,) = self._conn.execute("SELECT n FROM etag_seq WHERE id = 1").fetchone()
+        hwm, epoch = self.repl_position()
+        return {"rows": [list(r) for r in rows], "hwm": hwm, "epoch": epoch, "etag_n": etag_n}
+
+    def install_repl_snapshot(self, snap: dict) -> None:
+        """Replace this member's state by a leader's snapshot: the resync
+        of a diverged suffix or of a gap the log no longer holds."""
+        cur = self._conn.cursor()
+        begin_immediate(cur)
+        try:
+            cur.execute("DELETE FROM state")
+            cur.execute("DELETE FROM repl_log")
+            cur.executemany("INSERT INTO state(key, value, etag) VALUES (?, ?, ?)",
+                            [tuple(r) for r in snap["rows"]])
+            cur.execute("UPDATE repl_meta SET hwm = ?, epoch = ? WHERE id = 1",
+                        (int(snap["hwm"]), int(snap["epoch"])))
+            cur.execute("UPDATE etag_seq SET n = ? WHERE id = 1", (int(snap["etag_n"]),))
+            self._conn.commit()
+        except BaseException:
+            self._conn.rollback()
+            raise
+        with self._repl_lock:
+            self._repl_hwm, self._repl_epoch = int(snap["hwm"]), int(snap["epoch"])
+        self._dirty[0] = True
+        with self._cache_lock:
+            self._cache.clear()
+
+    def append_repl_barrier(self, epoch: int) -> dict:
+        """A new leader's first record: empty, at its higher epoch (the
+        leadership barrier), durable before any data at that epoch."""
+        cur = self._conn.cursor()
+        begin_immediate(cur)
+        try:
+            seq = self._repl_hwm + 1
+            (etag_n,) = cur.execute("SELECT n FROM etag_seq WHERE id = 1").fetchone()
+            record = {"seq": seq, "epoch": int(epoch), "ops": [], "etag_n": etag_n,
+                      "ts": time.time(), "barrier": True}
+            cur.execute("INSERT INTO repl_log(seq, epoch, record) VALUES (?, ?, ?)",
+                        (seq, int(epoch), json.dumps(record, separators=(",", ":"))))
+            cur.execute("UPDATE repl_meta SET hwm = ?, epoch = ? WHERE id = 1",
+                        (seq, int(epoch)))
+            self._conn.commit()
+        except BaseException:
+            self._conn.rollback()
+            raise
+        with self._repl_lock:
+            self._repl_hwm, self._repl_epoch = seq, int(epoch)
+        self._dirty[0] = True
+        return record
+
+    def repl_position(self) -> tuple[int, int]:
+        """(high-water mark, epoch), from any thread."""
+        with self._repl_lock:
+            return self._repl_hwm, self._repl_epoch
 
     async def query(self, query: dict, *, key_prefix: str = "") -> QueryResponse:
         if not isinstance(query, dict):
@@ -693,14 +977,30 @@ def _sqlite_state(spec: ComponentSpec, metadata: dict[str, str]):
     ``shards`` (1) partitions the store over that many ``-shardN`` files
     by rendezvous hash of the key, seeded by ``hashSeed`` (empty; every
     replica opening the files must use the same); ``shards: 1`` is the
-    plain single-file store. ``replicas`` other than 1 is not ported yet."""
-    if metadata_int(metadata, "replicas", 1) > 1:
-        raise ComponentError(f"state store {spec.name!r}: replicas other than 1 is not "
-                             "ported yet (ROADMAP A20b)")
+    plain single-file store.
+
+    ``replicas`` (1; at most 5) makes each shard a replica set of that
+    many members with a leased leader, epoch fencing and ack after
+    replication: ``ackQuorum`` (a majority) members, the leader among
+    them, hold a write before it is acknowledged; ``followerReads: true``
+    serves reads from a follower within ``maxLagRecords``
+    (``TASKSRUNNER_REPL_MAX_LAG_RECORDS``) of the leader.
+    ``replicas: 1`` is the plain store, with no record stream and no
+    lease file."""
     shards = metadata_int(metadata, "shards", 1)
+    replicas = metadata_int(metadata, "replicas", 1)
     path = metadata.get("databasePath", ":memory:")
     group_commit = metadata_bool(metadata, "groupCommit", True)
     cache_size = metadata_int(metadata, "readCacheSize", 0)
+    if replicas > 1:
+        from tasksrunner_torch.state.replication import build_replicated_store
+        return build_replicated_store(
+            spec.name, path, shards=shards, replicas=replicas,
+            ack_quorum=metadata_int(metadata, "ackQuorum", 0) or None,
+            hash_seed=metadata.get("hashSeed", ""), group_commit=group_commit,
+            cache_size=cache_size,
+            follower_reads=metadata_bool(metadata, "followerReads", False),
+            max_lag=metadata_int(metadata, "maxLagRecords", 0) or None)
     if shards == 1:
         return SqliteStateStore(spec.name, path, group_commit=group_commit,
                                 cache_size=cache_size)

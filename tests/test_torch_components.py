@@ -244,15 +244,18 @@ def test_a_redis_host_is_refused_and_none_falls_back_to_sqlite(tmp_path):
 
 
 def test_sharded_or_replicated_stores_are_refused():
-    """Replica sets are not ported yet (ROADMAP A20b); shards are, and a
-    shard count outside 1..64 is refused before any shard is built."""
+    """A replica count outside 1..5 and a shard count outside 1..64 are
+    refused before any member or shard is built; within them the store
+    is built."""
     def spec(**metadata):
         return parse_component({"componentType": "state.sqlite", "metadata": [
             {"name": k, "value": str(v)} for k, v in metadata.items()]}, default_name="s")
 
-    with pytest.raises(ComponentError, match=r"replicas other than 1 is not ported yet "
-                                             r"\(ROADMAP A20b\)"):
-        ComponentRegistry([spec(replicas=2)]).get("s")
+    with pytest.raises(ComponentError, match="replicas must be in 1..5, not 6"):
+        ComponentRegistry([spec(replicas=6)]).get("s")
+    replicated = ComponentRegistry([spec(replicas=2)]).get("s")
+    assert type(replicated).__name__ == "ReplicaSetStore" and len(replicated.nodes) == 2
+    replicated.close()
     for shards in (0, 65):
         with pytest.raises(ComponentError, match=f"shards must be in 1..64, not {shards}"):
             ComponentRegistry([spec(shards=shards)]).get("s")

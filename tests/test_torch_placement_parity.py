@@ -33,7 +33,6 @@ from tasksrunner_torch import cli
 from tasksrunner_torch.client import http_request
 from tasksrunner_torch.component.registry import ComponentRegistry
 from tasksrunner_torch.component.spec import parse_component
-from tasksrunner_torch.errors import StateError
 from tasksrunner_torch.invoke.resolver import NameResolver
 from tasksrunner_torch.orchestrator.admin import AdminServer
 from tasksrunner_torch.orchestrator.placement import PlacementController
@@ -200,14 +199,20 @@ async def test_migrating_a_shard_to_a_new_store_equals_the_jax_migration(tmp_pat
         finally:
             store.close()
     assert contents["port"] == contents["jax"] and len(contents["port"]) == 340
-    refused = port_sqlite.build_sharded_store("r", ":memory:", shards=2)
-    try:
-        with pytest.raises(StateError, match=r"not ported yet \(ROADMAP A20b\)"):
-            await refused.migrate_shard(0, member="m1")
-        with pytest.raises(StateError, match="exactly one of"):
-            await refused.migrate_shard(0)
-    finally:
-        refused.close()
+    refusals = {}
+    for name, (mod, _) in PACKAGES.items():
+        refused = mod.build_sharded_store("r", ":memory:", shards=2)
+        try:
+            for kwargs in ({"member": "m1"}, {}):
+                with pytest.raises(Exception) as err:
+                    await refused.migrate_shard(0, **kwargs)
+                refusals.setdefault(name, []).append((type(err.value).__name__, str(err.value)))
+        finally:
+            refused.close()
+    # member= needs replica-set children: a plain shard is refused as in JAX
+    assert refusals["port"] == refusals["jax"]
+    assert "shard 0 is not replicated" in refusals["port"][0][1]
+    assert "exactly one of" in refusals["port"][1][1]
 
 
 async def test_a_write_in_flight_across_a_catch_up_round_is_not_lost(tmp_path, caplog,
