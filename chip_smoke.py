@@ -201,6 +201,31 @@ exit, traceback) at the first phase that does not hold:
    transaction's ms, the query's ms a page, the ranking, the verbs'
    lines, the handoff's pause, the failover's seconds and the splits'
    numbers;
+8h. workflows: two ``python -m tasksrunner_torch host`` replicas of the
+   scorer on the card, over one sqlite actor store (the sample's store
+   file with ``actorStateStore: "true"`` and no read cache),
+   ``TASKSRUNNER_WORKFLOWS=1``, a
+   1 s actor lease and a 0.25 s sweep; the app (a module the phase
+   writes) adds a ``ScoreTally`` actor, a ``triage`` workflow (an
+   activity collects 32 saved tasks from the store, ``when_all`` runs one
+   ``score-task`` activity a task, each calling ``POST /score`` through
+   the sidecar's service invocation and staging ``score||{taskId}``, a
+   last activity adds the batch to an owner's ``ScoreTally``) and the
+   sample's ``checkout`` saga. 8 triage instances started through the two
+   sidecars at once; 64 ``ScoreTally`` turns sent to each sidecar at once,
+   half of them forwarded to the other process; 4 checkouts, 2 above the
+   card limit; the ``actors`` and ``workflows`` verbs; a long triage (24
+   sequential steps) whose owner is killed with SIGKILL after 3 committed
+   steps and which the survivor adopts. Every instance completes with
+   contiguous activity seqs, every score stored once and within 2e-2 of
+   the scorer's in this process, each tally the sum of its acknowledged
+   turns, no reservation left by a compensated checkout, the adopted
+   record's epoch above its epoch at the kill, and the survivor's B1
+   launches (its clean stop)
+   its ``expected_serve_launches``. Prints instances/s, turns/s, the
+   forwarded turns' p50, the failover's seconds (the kill to the
+   survivor's first committed step), the drive reminder's firings on the
+   survivor and the history lengths;
 9. train: SGD steps at the served config (loss falls; one forward and
    one backward launch per layer and step), one step with the flash core
    against one with the einsum core (and again with the fused-Δ
@@ -1399,10 +1424,10 @@ class _Processes:
         self.procs: dict[str, subprocess.Popen] = {}
 
     async def start(self, name: str, *args: str, seconds: float = 120,
-                    env: dict | None = None) -> dict:
+                    env: dict | None = None, log_level: str = "warning") -> dict:
         log = open(self.logs / f"{name}.log", "w")
         proc = subprocess.Popen([sys.executable, "-m", "tasksrunner_torch", "--log-level",
-                                 "warning", *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                 log_level, *args], cwd=ROOT, stdout=subprocess.PIPE,
                                 stderr=log, text=True, env=env)
         log.close()
         self.procs[name] = proc
@@ -3744,6 +3769,418 @@ def phase_placement(smi: str) -> int:
     return launched
 
 
+WF_TASKS = 32        # saved-task texts one triage instance scores
+WF_INSTANCES = 8     # triage instances, half started through each sidecar
+WF_TURNS = 64        # ScoreTally turns sent to each sidecar
+WF_TALLIES = 8       # the actors those turns go to, half placed on each replica
+WF_LONG_STEPS = 24   # the long triage's sequential scoring steps
+WF_KILL_AFTER = 3    # its scoring steps committed before its owner is killed
+WF_PACE_S = 0.05     # the long triage's pause a step, so the kill lands mid-run
+WF_LEASE_S, WF_POLL_S = "1", "0.25"
+WF_CHECKOUTS = [({"items": ["tea", "mug"], "amount": 42.0}, "completed"),
+                ({"items": ["tv"], "amount": 9000.0}, "failed"),
+                ({"items": ["pen"], "amount": 120.0}, "completed"),
+                ({"items": ["lamp", "rug"], "amount": 777.0}, "failed")]
+WF_APPS = '''"""The workflows phase's app: the scorer, an actor that keeps an owner's
+running total of scores, the triage workflow whose activities score
+saved tasks through the sidecar's service invocation of POST /score, and
+the tasks tracker sample's checkout saga."""
+import asyncio
+
+from tasksrunner_torch import service
+from tasksrunner_torch.resiliency import RetrySpec
+
+CARD_LIMIT = 500.0
+STORE = "statestore"
+
+
+def scorer(device=None):
+    app = service.make_app(device=device)
+
+    @app.actor("ScoreTally")
+    async def score_tally(turn):
+        # an add with a key counts once: an activity may run twice
+        key = (turn.data or {}).get("key")
+        seen = turn.state.setdefault("seen", [])
+        if key is None or key not in seen:
+            if key is not None:
+                seen.append(key)
+            turn.state["total"] = turn.state.get("total", 0.0) + float(turn.data["score"])
+            turn.state["count"] = turn.state.get("count", 0) + 1
+        return {"total": turn.state.get("total", 0.0), "count": turn.state.get("count", 0)}
+
+    @app.workflow("triage")
+    async def triage(ctx, req):
+        tasks = await ctx.call_activity("collect-tasks", req["taskIds"])
+        pace = req.get("paceSeconds", 0.0)
+        if req.get("sequential"):
+            scores = [await ctx.call_activity("score-task", {"task": t, "pace": pace})
+                      for t in tasks]
+        else:
+            scores = await ctx.when_all([ctx.call_activity("score-task", {"task": t})
+                                         for t in tasks])
+        tally = await ctx.call_activity("tally", {
+            "owner": req["owner"], "key": ctx.instance,
+            "score": sum(s["confidence"] for s in scores)})
+        return {"scored": len(scores), "tally": tally}
+
+    @app.activity("collect-tasks")
+    async def collect_tasks(actx, task_ids):
+        return [await app.client.get_state(STORE, f"task||{t}") for t in task_ids]
+
+    # a 503 (warming) or a 429 (shed) is tried again
+    @app.activity("score-task", retry=RetrySpec(duration=0.1, max_retries=50))
+    async def score_task(actx, req):
+        if req.get("pace"):
+            await asyncio.sleep(req["pace"])
+        reply = await app.client.invoke_method(app.app_id, "score", data=req["task"])
+        if reply.status != 200:
+            raise RuntimeError(f"/score answered {reply.status}")
+        score = reply.json()
+        doc = {"priority": score["priority"], "confidence": score["confidence"]}
+        actx.stage_effect(f"score||{req['task']['taskId']}", doc)
+        return doc
+
+    @app.activity("tally")
+    async def tally(actx, req):
+        return await app.client.invoke_actor("ScoreTally", req["owner"], "add",
+                                             {"score": req["score"], "key": req["key"]})
+
+    # the sample's checkout saga (samples/tasks_tracker/backend_api/workflows.py)
+    @app.workflow("checkout")
+    async def checkout(ctx, order):
+        order = dict(order or {})
+        order_id = order.get("orderId") or ctx.uuid4()
+        for item in order.get("items", []):
+            stock = await ctx.call_activity("reserve-stock", {"orderId": order_id, "item": item})
+            ctx.register_compensation("release-stock", stock)
+        receipt = await ctx.call_activity(
+            "charge-card", {"orderId": order_id, "amount": order.get("amount", 0)})
+        ctx.register_compensation("refund-card", receipt)
+        await ctx.call_activity("send-confirmation", {"orderId": order_id, "placedAt": ctx.now()})
+        return {"orderId": order_id, "receipt": receipt}
+
+    @app.activity("reserve-stock")
+    async def reserve_stock(actx, data):
+        actx.stage_effect(f"checkout||{data['orderId']}||reserved||{data['item']}", data)
+        return data
+
+    @app.activity("release-stock")
+    async def release_stock(actx, data):
+        actx.stage_effect(f"checkout||{data['orderId']}||reserved||{data['item']}",
+                          operation="delete")
+        return data["item"]
+
+    @app.activity("charge-card", retry=RetrySpec(policy="exponential", duration=0.05,
+                                                 max_retries=3), timeout=10.0)
+    async def charge_card(actx, data):
+        amount = float(data.get("amount") or 0)
+        if amount > CARD_LIMIT:
+            raise RuntimeError(f"card declined: {amount} exceeds limit {CARD_LIMIT}")
+        receipt = {"orderId": data["orderId"], "amount": amount, "attempt": actx.attempt}
+        actx.stage_effect(f"checkout||{data['orderId']}||charge", receipt)
+        return receipt
+
+    @app.activity("refund-card")
+    async def refund_card(actx, receipt):
+        actx.stage_effect(f"checkout||{receipt['orderId']}||charge", operation="delete")
+        actx.stage_effect(f"checkout||{receipt['orderId']}||refund", receipt)
+        return receipt["orderId"]
+
+    @app.activity("send-confirmation")
+    async def send_confirmation(actx, data):
+        actx.stage_effect(f"checkout||{data['orderId']}||confirmation", data)
+        return data["orderId"]
+
+    return app
+'''
+
+
+def _workflow_files(data: Path) -> Path:
+    """The apps' module and the components: the sample's store file as the
+    actor store (``actorStateStore: "true"``) on a file in ``data``, scoped
+    to the scorer, without its read cache (two processes write the file:
+    a cache would serve one the records the other replaced)."""
+    (data / "wf_apps.py").write_text(WF_APPS)
+    comps = data / "components"
+    comps.mkdir()
+    (comps / "statestore.yaml").write_text(
+        (SAMPLE_COMPONENTS / "statestore.yaml").read_text()
+        .replace(".tasksrunner/statestore.db", str(data / "wf.db"))
+        .replace('value: "1024"', 'value: "0"')
+        .replace("- tasksmanager-backend-api", f"- {APP_ID}")
+        .replace("scopes:", '  - name: actorStateStore\n    value: "true"\nscopes:'))
+    return comps
+
+
+def _history_seqs(history: list[dict]) -> list[int]:
+    return [e["seq"] for e in history if e["t"] == "activity_completed"]
+
+
+async def _workflows_phase(data: Path, device: str | None = None) -> dict:
+    """The phase's run: two ``host`` replicas of the scorer over one actor
+    store, on the card unless ``device`` names another."""
+    comps, registry = _workflow_files(data), data / "apps.json"
+    env = {**os.environ, "TASKSRUNNER_WORKFLOWS": "1", "TASKSRUNNER_TRACE_DB": "",
+           "TASKSRUNNER_FLIGHTREC_DIR": str(data / "flightrec"),
+           "TASKSRUNNER_ACTOR_LEASE_SECONDS": WF_LEASE_S,
+           "TASKSRUNNER_ACTOR_REMINDER_POLL_SECONDS": WF_POLL_S,
+           "PYTHONPATH": os.pathsep.join(filter(None, (str(data), os.environ.get("PYTHONPATH"))))}
+    device_args = [] if device is None else ["--device", device]
+    procs = _Processes(data)
+    phase_t = time.monotonic()
+    try:
+        ready = await asyncio.gather(*(procs.start(
+            name, "host", "wf_apps:scorer", "--components", str(comps), "--registry-file",
+            str(registry), *device_args, env=env, log_level="info", seconds=600)
+            for name in ("a", "b")))
+        sidecar = {n: int(r["sidecar_port"]) for n, r in zip("ab", ready)}
+        app_port = {n: int(r["app_port"]) for n, r in zip("ab", ready)}
+        pid = {n: procs.procs[n].pid for n in "ab"}
+
+        async def stats(name: str) -> dict:
+            status, _, body = await _http(app_port[name], "GET", "/ml/stats")
+            check(status == 200, f"/ml/stats of {name} answered {status}")
+            return json.loads(body)
+
+        async def call(name: str, method: str, path: str, body=None) -> tuple[int, object]:
+            raw = b"" if body is None else json.dumps(body).encode()
+            status, _, reply = await _http(sidecar[name], method, path, raw)
+            return status, (json.loads(reply) if reply else None)
+
+        async def wf(name: str, instance: str, what: str = "") -> object:
+            status, doc = await call(name, "GET", f"/v1.0/workflows/engine/{instance}{what}")
+            check(status == 200, f"{instance}{what} answered {status}: {doc}")
+            return doc
+
+        deadline = time.monotonic() + 600
+        while not all([(await stats(n))["ready"] for n in "ab"]):
+            check(time.monotonic() < deadline, "the replicas never warmed up")
+            await asyncio.sleep(0.1)
+        ready_s = time.monotonic() - phase_t
+
+        # the saved tasks the triage instances collect
+        tasks = [_saved_task("wf", i) for i in range(WF_INSTANCES * WF_TASKS + WF_LONG_STEPS)]
+        status, _ = await call("a", "POST", "/v1.0/state/statestore",
+                               [{"key": f"task||{t['taskId']}", "value": t} for t in tasks])
+        check(status == 204, f"saving the tasks answered {status}")
+
+        # 1. triage instances, half through each sidecar, all at once
+        triage = {f"tri-{i}": {"taskIds": [t["taskId"] for t in
+                                           tasks[i * WF_TASKS:(i + 1) * WF_TASKS]],
+                               "owner": f"triage-owner-{i % 2}"} for i in range(WF_INSTANCES)}
+        started = time.monotonic()
+        starts = await asyncio.gather(*(call(
+            "ab"[i % 2], "POST", f"/v1.0/workflows/engine/triage/start?instanceID={inst}", req)
+            for i, (inst, req) in enumerate(triage.items())))
+        check(all(s == (200, {"instanceID": i}) for s, i in zip(starts, triage)),
+              f"triage starts answered {starts}")
+        for inst in triage:
+            while (doc := await wf("b", inst))["status"] == "running":
+                await asyncio.sleep(0.02)
+            check(doc["status"] == "completed" and doc["result"]["scored"] == WF_TASKS,
+                  f"{inst} ended {doc}")
+        triage_s = time.monotonic() - started
+
+        # 2. ScoreTally turns: each actor placed on one replica first, then
+        # WF_TURNS a sidecar at once, half of each sidecar's forwarded
+        acked: dict[str, list[float]] = {f"owner-{k}": [] for k in range(WF_TALLIES)}
+        for k in range(WF_TALLIES):
+            status, doc = await call("ab"[k % 2], "PUT",
+                                     f"/v1.0/actors/ScoreTally/owner-{k}/method/add",
+                                     {"score": 0.0})
+            check(status == 200, f"placing owner-{k} answered {status}: {doc}")
+            acked[f"owner-{k}"].append(0.0)
+
+        async def turn(name: str, i: int) -> tuple[str, str, int, float]:
+            actor, score = f"owner-{i % WF_TALLIES}", (i % 16 + 1) / 16
+            t = time.monotonic()
+            status, _ = await call(name, "PUT", f"/v1.0/actors/ScoreTally/{actor}/method/add",
+                                   {"score": score})
+            if status == 200:
+                acked[actor].append(score)
+            return name, actor, status, time.monotonic() - t
+
+        started = time.monotonic()
+        turns = await asyncio.gather(*(turn(n, i) for n in "ab" for i in range(WF_TURNS)))
+        turns_s = time.monotonic() - started
+        check([t[2] for t in turns] == [200] * len(turns),
+              f"tally turn statuses {sorted({t[2] for t in turns})}")
+        status, view = await call("a", "GET", "/v1.0/actors")
+        owner_of = {row["id"]: row["owner"] for row in view["placement"]}
+        local = {n: (await call(n, "GET", "/v1.0/metadata"))[1]["actors"]["replica"] for n in "ab"}
+        forwarded = [t[3] for t in turns if owner_of[t[1]] != local[t[0]]]
+        check(len(forwarded) == WF_TURNS, f"{len(forwarded)} of {2 * WF_TURNS} turns forwarded")
+
+        # 3. checkouts, the two above the card limit compensated
+        for i, (order, _) in enumerate(WF_CHECKOUTS):
+            status, _ = await call("ab"[i % 2], "POST",
+                                   f"/v1.0/workflows/engine/checkout/start?instanceID=co-{i}",
+                                   {**order, "orderId": f"ord-{i}"})
+            check(status == 200, f"checkout co-{i} answered {status}")
+        for i, (_, want) in enumerate(WF_CHECKOUTS):
+            while (doc := await wf("a", f"co-{i}"))["status"] == "running":
+                await asyncio.sleep(0.02)
+            check(doc["status"] == want, f"co-{i} ended {doc}")
+
+        # the verbs, while both replicas answer
+        actors_out, _ = _verb_run(env, "actors", "--app-id", APP_ID, "--registry-file",
+                                  str(registry))
+        workflows_out, _ = _verb_run(env, "workflows", "--app-id", APP_ID, "--registry-file",
+                                     str(registry))
+        check(len(workflows_out.splitlines()) == 1 + WF_INSTANCES + len(WF_CHECKOUTS),
+              f"workflows printed {workflows_out}")
+
+        # 4. the long triage through a, killed with SIGKILL after its
+        # WF_KILL_AFTER-th scoring step; b adopts it
+        long_ids = [t["taskId"] for t in tasks[WF_INSTANCES * WF_TASKS:]]
+        fired_before = (await call("b", "GET", "/v1.0/metadata"))[1]["metrics"].get(
+            "actor_reminder_fired_total{type=_Workflow}", 0)
+        long_start = asyncio.ensure_future(call(
+            "a", "POST", "/v1.0/workflows/engine/triage/start?instanceID=tri-long",
+            {"taskIds": long_ids, "owner": "triage-owner-long", "sequential": True,
+             "paceSeconds": WF_PACE_S}))
+        deadline = time.monotonic() + 60
+        while True:
+            status, doc = await call("b", "GET", "/v1.0/workflows/engine/tri-long/history")
+            scored = [e for e in (doc or {}).get("history", [])
+                      if e.get("t") == "activity_completed" and e["name"] == "score-task"]
+            if status == 200 and len(scored) >= WF_KILL_AFTER:
+                break
+            check(time.monotonic() < deadline, f"tri-long never reached its third step: {doc}")
+            await asyncio.sleep(0.005)
+        status, place = await call("b", "GET", "/v1.0/actors")
+        long_row = next(r for r in place["placement"] if r["id"] == "tri-long")
+        check(long_row["pid"] == pid["a"], f"tri-long owned by {long_row}, not a's pid")
+        epoch_at_kill = (await call("b", "GET", "/v1.0/actors/_Workflow/tri-long/state"))[1][
+            "epoch"]
+        os.kill(pid["a"], signal.SIGKILL)
+        killed_t = time.monotonic()
+        procs.procs.pop("a").wait(timeout=30)
+        long_start.cancel()
+        with contextlib.suppress(BaseException):
+            await long_start
+        at_kill = len(_history_seqs((await wf("b", "tri-long", "/history"))["history"]))
+        failover_s = None
+        deadline = time.monotonic() + 60
+        while (doc := await wf("b", "tri-long"))["status"] == "running":
+            if failover_s is None and len(_history_seqs(
+                    (await wf("b", "tri-long", "/history"))["history"])) > at_kill:
+                failover_s = time.monotonic() - killed_t
+            check(time.monotonic() < deadline, f"tri-long never ended after the kill: {doc}")
+            await asyncio.sleep(0.01)
+        if failover_s is None:
+            failover_s = time.monotonic() - killed_t
+        check(doc["status"] == "completed" and doc["result"]["scored"] == WF_LONG_STEPS,
+              f"tri-long ended {doc}")
+        fired = (await call("b", "GET", "/v1.0/metadata"))[1]["metrics"].get(
+            "actor_reminder_fired_total{type=_Workflow}", 0) - fired_before
+        check(fired >= 1, "no drive reminder fired on the survivor")
+        status, record = await call("b", "GET", "/v1.0/actors/_Workflow/tri-long/state")
+        check(record["epoch"] > epoch_at_kill,
+              f"the adopted record's epoch {record['epoch']}, {epoch_at_kill} at the kill")
+
+        # every history contiguous, without a duplicate, across the kill
+        lengths = {}
+        for inst in [*triage, "tri-long", *(f"co-{i}" for i in range(len(WF_CHECKOUTS)))]:
+            history = (await wf("b", inst, "/history"))["history"]
+            seqs = _history_seqs(history)
+            check(seqs == list(range(1, len(seqs) + 1)), f"{inst}: activity seqs {seqs}")
+            lengths[inst] = len(history)
+        check(all(lengths[i] == WF_TASKS + 4 for i in triage)
+              and lengths["tri-long"] == WF_LONG_STEPS + 4, f"history lengths {lengths}")
+
+        # each tally the sum of its acknowledged turns, the triage ones once each
+        for actor, scores in acked.items():
+            state = (await call("b", "GET", f"/v1.0/actors/ScoreTally/{actor}/state"))[1]["data"]
+            check(state["count"] == len(scores) and state["total"] == sum(scores),
+                  f"{actor}: {state['count']} turns totalling {state['total']}, acked "
+                  f"{len(scores)} totalling {sum(scores)}")
+        for owner, n in (("triage-owner-0", WF_INSTANCES // 2),
+                         ("triage-owner-1", WF_INSTANCES // 2), ("triage-owner-long", 1)):
+            state = (await call("b", "GET", f"/v1.0/actors/ScoreTally/{owner}/state"))[1]["data"]
+            check(state["count"] == n, f"{owner} counted {state['count']} instances, not {n}")
+
+        # the survivor's clean stop: its launches against its /ml/stats
+        last_stats = await stats("b")
+        procs.stop("b")
+        counted = [json.loads(line.split(" pid=", 1)[1].split(" ", 1)[1])
+                   for line in (data / "b.log").read_text().splitlines()
+                   if f" kernel launches app={APP_ID} pid={pid['b']} " in line]
+        expected = expected_serve_launches(last_stats, torch.cuda.device_count())
+        check(len(counted) == 1 and counted[0]["flash_fwd"] == expected,
+              f"the survivor's B1 launches {counted} != expected {expected}")
+
+        # the store file: every score once, each the smoke's own within SCORE_TOL;
+        # compensated checkouts hold no reservation
+        with contextlib.closing(sqlite3.connect(data / "wf.db")) as conn:
+            rows = dict(conn.execute("SELECT key, value FROM state"))
+        prefix = f"{APP_ID}||"
+        scores = {k[len(prefix + "score||"):]: json.loads(v) for k, v in rows.items()
+                  if k.startswith(prefix + "score||")}
+        check(sorted(scores) == sorted(t["taskId"] for t in tasks),
+              f"{len(scores)} score effects stored for {len(tasks)} tasks")
+        for i, (order, want) in enumerate(WF_CHECKOUTS):
+            held = sorted(k for k in rows if k.startswith(f"{prefix}checkout||ord-{i}||"))
+            if want == "failed":  # declined: no charge, the reservations released
+                check(held == [], f"compensated co-{i} holds {held}")
+            else:
+                check(len([k for k in held if "||reserved||" in k]) == len(order["items"])
+                      and f"{prefix}checkout||ord-{i}||confirmation" in held,
+                      f"co-{i} holds {held}")
+        dev = torch.device(device or "cuda:0")
+        probs = service.batch_probs(
+            [init_params(SERVED, 0, dev)], [dev],
+            np.stack([service.task_tokens(t, SERVED) for t in tasks]), cfg=SERVED)
+        worst = 0.0
+        for row, t in zip(probs, tasks):
+            got = scores[t["taskId"]]
+            label = service.PRIORITY_LABELS.index(got["priority"])
+            check(row[label] >= row.max() - SCORE_TOL,
+                  f"{t['taskId']}: stored {got} but the scorer gives {row.tolist()}")
+            worst = max(worst, abs(float(row[label]) - got["confidence"]))
+        check(worst <= SCORE_TOL, f"stored confidence off by {worst}")
+        return {"replicas_ready_s": ready_s,
+                "triage": {"instances": WF_INSTANCES, "tasks_each": WF_TASKS,
+                           "seconds": triage_s, "instances_per_s": WF_INSTANCES / triage_s},
+                "tally_turns": {"turns": len(turns), "seconds": turns_s,
+                                "turns_per_s": len(turns) / turns_s,
+                                "forwarded": len(forwarded),
+                                "forwarded_ms": _p50_max_ms(forwarded),
+                                "local_ms": _p50_max_ms([t[3] for t in turns
+                                                         if owner_of[t[1]] == local[t[0]]])},
+                "kill": {"steps_at_kill": at_kill, "failover_s": failover_s,
+                         "reminder_refires_on_survivor": fired,
+                         "epoch_at_kill": epoch_at_kill, "adopted_epoch": record["epoch"]},
+                "history_lengths": lengths, "score_effects": len(scores),
+                "worst_confidence_err": worst, "verbs": {
+                    "actors": actors_out.splitlines(), "workflows": len(
+                        workflows_out.splitlines()) - 1},
+                "survivor_launches": counted[0]["flash_fwd"], "expected_launches": expected}
+    except BaseException:
+        for name in ("a", "b"):
+            if (data / f"{name}.log").exists():
+                print(f"--- replica {name}, {time.monotonic() - phase_t:.3f} s into the phase:\n"
+                      f"{procs.tail(name)}", file=sys.stderr)
+        raise
+    finally:
+        procs.kill_all()
+
+
+def phase_workflows(smi: str) -> int:
+    """Two ``host`` replicas of the scorer over one actor store: triage
+    workflows scoring saved tasks through ``/score``, ScoreTally turns
+    forwarded between the replicas, checkouts, and a ``kill -9`` of a
+    running instance's owner; returns the survivor's B1 launches."""
+    started = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-workflows-") as data:
+        result = asyncio.run(_workflows_phase(Path(data)))
+    emit({"phase": "workflows", "nvidia_smi": smi, **result,
+          "seconds": time.monotonic() - started})
+    check(result["survivor_launches"] > 0, "the workflows phase launched no flash kernel")
+    return result["survivor_launches"]
+
+
 def _one_step(cfg, params, tokens, labels, lr, *, flash_on: bool,
               mesh: Mesh | None = None):
     """One train step from a copy of ``params``: (new params, loss)."""
@@ -4324,7 +4761,8 @@ def main() -> int:
     launches = {"flash_fwd": clocked(phase_serve) + clocked(phase_runtime, smi)
                 + clocked(phase_sidecar, smi) + clocked(phase_orchestrator, smi)
                 + clocked(phase_deploy, smi) + clocked(phase_bindings, smi)
-                + clocked(phase_observability, smi) + clocked(phase_placement, smi)}
+                + clocked(phase_observability, smi) + clocked(phase_placement, smi)
+                + clocked(phase_workflows, smi)}
     trained = clocked(phase_train)
     launches.update({name: trained[name] for name in BWD_VARIANTS})
     sp_launches = clocked(phase_sequence_parallel)

@@ -42,6 +42,10 @@ each counterpart is easy to find:
   file), ``flightrec`` (the black-box ring), ``logconfig`` (role- and
   trace-tagged log lines), ``eventloop`` (the uvloop switch) and
   ``cloudevents``
+* ``actors``      – ``tasksrunner/actors/``: virtual actors (placement,
+  turns, epoch fencing, durable reminders, failover)
+* ``workflows``   – ``tasksrunner/workflows/``: durable, replayed
+  workflows on the actors (activities, sagas, timers, children)
 * ``orchestrator`` – ``tasksrunner/orchestrator/``: run files, supervised
   and autoscaled replicas, the control-plane lease (``state.lease``) and
   the admin API

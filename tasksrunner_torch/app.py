@@ -22,6 +22,18 @@ of ``tasksrunner/app.py`` and of its HTTP adapter
   counted as load, is never shed, and needs the ``tr-api-token`` header
   when ``TASKSRUNNER_API_TOKEN`` is set (401 without it).
 * ``GET /openapi.json`` is an OpenAPI 3.1 document of the HTTP routes.
+* Actor turn handlers (``@app.actor(type)``, ``async def (turn)`` with an
+  :class:`~tasksrunner_torch.actors.ActorTurn`), workflows
+  (``@app.workflow(name)``) and activities (``@app.activity(name, retry=,
+  timeout=)``), the last two kept by a
+  :class:`~tasksrunner_torch.workflows.WorkflowEngine` that hosts the
+  ``_Workflow`` actor type. The owning runtime reaches them over the app
+  channel: ``GET /tasksrunner/actors`` lists the hosted types, ``PUT
+  /tasksrunner/actors/{type}/{id}/{method}`` runs one turn on ``{"data",
+  "state", "kind", "reminder"}`` and answers ``{"state", "result"}`` with
+  ``effects``, ``reminders_set`` and ``reminders_clear`` where the turn
+  staged any; a turn adopts the runtime's ``traceparent`` and, with spans
+  recorded, records ``ACTOR {type}/{id}.{method}`` (server).
 * An incoming ``traceparent`` (and ``baggage``) opens a trace scope
   around the handler. With spans recorded, each routed request records
   one span around its handler, ``f"{METHOD} {path}"`` with the response
@@ -53,7 +65,9 @@ path (the sidecar's ``/v1.0/invoke/{app_id}/method/{path:.*}``).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import http
+import inspect
 import json
 import logging
 import os
@@ -64,10 +78,11 @@ from typing import Any, Awaitable, Callable
 from tasksrunner_torch import cloudevents, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, AppClient
+from tasksrunner_torch.errors import TasksRunnerError, ValidationError
 from tasksrunner_torch.metrics import MetricsRegistry, metrics
 from tasksrunner_torch.probes import EventLoopLagProbe
 from tasksrunner_torch.tracing import (
-    BAGGAGE_HEADER, TRACEPARENT_HEADER, ensure_trace, trace_scope,
+    BAGGAGE_HEADER, TRACEPARENT_HEADER, current_trace, ensure_trace, trace_scope,
 )
 
 logger = logging.getLogger(__name__)
@@ -76,6 +91,7 @@ MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 1024 * 1024
 SUBSCRIBE_PATHS = ("/dapr/subscribe", "/tasksrunner/subscribe")
 STATS_PATH = "/tasksrunner/stats"
+ACTORS_PATH = "/tasksrunner/actors"
 
 
 @dataclass
@@ -269,6 +285,10 @@ class App:
         self._lag_probe: EventLoopLagProbe | None = None
         #: the app's own metrics, where it keeps any (the scorer: its batcher's)
         self.registry: MetricsRegistry | None = None
+        #: actor type → turn handler (``@app.actor``)
+        self.actors: dict[str, Callable[[Any], Awaitable[Any]]] = {}
+        #: the WorkflowEngine, once a workflow or an activity is registered
+        self.workflow_engine: Any = None
 
     # -- registration ----------------------------------------------------
 
@@ -296,6 +316,55 @@ class App:
         (``/<name>`` by default)."""
         route = route or f"/{name}"
         return self.route("POST", route, kind="binding")
+
+    def actor(self, actor_type: str) -> Callable:
+        """The turn handler of one actor type: an ``async def (turn)`` that
+        never runs two turns of one actor id at once, cluster-wide."""
+        def register(handler):
+            if not inspect.iscoroutinefunction(handler):
+                raise ValidationError(
+                    f"actor turn handlers must be 'async def' ({actor_type}: "
+                    f"{getattr(handler, '__name__', handler)!r} is synchronous)")
+            if actor_type in self.actors:
+                raise ValidationError(f"actor type {actor_type!r} is already registered")
+            self.actors[actor_type] = handler
+            return handler
+        return register
+
+    def _workflow_engine(self):
+        """The workflow engine, made on first use; it hosts ``_Workflow``."""
+        if self.workflow_engine is None:
+            from tasksrunner_torch.workflows import WORKFLOW_ACTOR_TYPE, WorkflowEngine
+            self.workflow_engine = WorkflowEngine(self)
+            self.actors[WORKFLOW_ACTOR_TYPE] = self.workflow_engine.handle_turn
+        return self.workflow_engine
+
+    def workflow(self, name: str) -> Callable:
+        """A deterministic orchestrator, ``async def (ctx, input)``, that
+        sees the world only through ``ctx`` (it is replayed)."""
+        def register(handler):
+            if not inspect.iscoroutinefunction(handler):
+                raise ValidationError(
+                    f"workflow orchestrators must be 'async def' ({name}: "
+                    f"{getattr(handler, '__name__', handler)!r} is synchronous)")
+            self._workflow_engine().register_workflow(name, handler)
+            return handler
+        return register
+
+    def activity(self, name: str, *, retry=None, timeout: float | None = None) -> Callable:
+        """An activity, ``async def (actx, input)``: a workflow's effectful
+        step, retried under ``retry`` (a
+        :class:`~tasksrunner_torch.resiliency.RetrySpec`; a bounded
+        exponential policy by default), each attempt within ``timeout``."""
+        def register(handler):
+            if not inspect.iscoroutinefunction(handler):
+                raise ValidationError(
+                    f"workflow activities must be 'async def' ({name}: "
+                    f"{getattr(handler, '__name__', handler)!r} is synchronous)")
+            self._workflow_engine().register_activity(name, handler, retry=retry,
+                                                      timeout=timeout)
+            return handler
+        return register
 
     def on_startup(self, fn: Callable[[], Awaitable[None]]):
         self._startup.append(fn)
@@ -420,6 +489,8 @@ class App:
             return Response(204)
         if method == "GET" and path == "/openapi.json":
             return Response(body=self.openapi())
+        if path.startswith(ACTORS_PATH):
+            return await self._handle_actor(request)
         found = self.router.find(method, path)
         if found is None:
             known = self.router.known_path(path)
@@ -445,6 +516,55 @@ class App:
                     duration=time.time() - started, trace_id=ctx.trace_id,
                     span_id=ctx.span_id, parent_id=ctx.parent_id)
             return response
+
+    async def _handle_actor(self, request: Request) -> Response:
+        """The runtime's actor channel. Only the owning replica's runtime
+        sends a turn, with the turn's lock held there."""
+        from tasksrunner_torch.actors.turn import ActorTurn
+
+        method, path = request.method, request.path
+        if method == "GET" and path == ACTORS_PATH:
+            return Response(body=sorted(self.actors))
+        parts = _segments(path)  # ["tasksrunner", "actors", type, id, method]
+        if method != "PUT" or len(parts) != 5:
+            return Response(404, {"error": f"no actor route for {method} {path}"})
+        actor_type, actor_id, turn_method = parts[2], parts[3], parts[4]
+        handler = self.actors.get(actor_type)
+        if handler is None:
+            return Response(404, {"error": f"app {self.app_id!r} hosts no actor type "
+                                           f"{actor_type!r}"})
+        doc = json.loads(request.body) if request.body else {}
+        turn = ActorTurn(actor_type=actor_type, actor_id=actor_id, method=turn_method,
+                         data=doc.get("data"), state=doc.get("state") or {},
+                         kind=doc.get("kind") or "turn", reminder=doc.get("reminder"))
+        traceparent = request.headers.get(TRACEPARENT_HEADER)
+        ctx = (ensure_trace(traceparent, request.headers.get(BAGGAGE_HEADER))
+               if traceparent else current_trace())
+        started = time.time()
+        with trace_scope(ctx) if ctx is not None else contextlib.nullcontext():
+            try:
+                result = await handler(turn)
+                out = {"state": turn.state, "result": result}
+                # staged changes ride the answer only when used
+                if turn.effects:
+                    out["effects"] = turn.effects
+                if turn.reminder_sets:
+                    out["reminders_set"] = turn.reminder_sets
+                if turn.reminder_clears:
+                    out["reminders_clear"] = turn.reminder_clears
+                response = Response(body=out)
+            except TasksRunnerError as exc:
+                response = Response(exc.http_status, {"error": str(exc)})
+            except Exception:  # noqa: BLE001 - one turn must not stop the server
+                logger.exception("actor turn %s/%s.%s failed", actor_type, actor_id,
+                                 turn_method)
+                response = Response(500, {"error": "internal error"})
+        if ctx is not None and spans.active():
+            spans.record_span(kind="server", name=f"ACTOR {actor_type}/{actor_id}.{turn_method}",
+                              status=response.status, start=started,
+                              duration=time.time() - started, trace_id=ctx.trace_id,
+                              span_id=ctx.span_id, parent_id=ctx.parent_id)
+        return response
 
     async def _call(self, route: _Route, request: Request) -> Response:
         try:

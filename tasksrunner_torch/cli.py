@@ -41,10 +41,17 @@
   runs SQL on a read-only connection; ``map --mermaid``);
 * ``flightrec [--dump FILE]``: the flight recorder's dumps, or one dump;
 * ``dlq list|show|requeue|purge COMPONENT [TOPIC]``: the dead letters of
-  a broker's consumer group or of a queue binding.
+  a broker's consumer group or of a queue binding;
+* ``actors --app-id ID [--ids] [--json]``: the actor placement table from
+  the app's sidecar, per type or per id;
+* ``workflows [INSTANCE] --app-id ID [--history] [--start WORKFLOW]
+  [--terminate [--reason R]] [--raise-event EVENT] [--input JSON]
+  [--json]``: the workflow instances, one instance's status or history,
+  or a start, a termination or an event through the app's sidecar.
 
-``actors``, ``workflows``, ``chaos``, ``lint`` and ``verify`` are refused:
-their modules are not ported yet (ROADMAP A21, A23, A27).
+``chaos``, ``lint`` and ``verify`` are refused: their modules (the chaos
+engine, the static analysis and the model checker) are not ported yet
+(ROADMAP A23, A27).
 The printed lines and exit codes are the JAX verbs'.
 
 ``host`` and ``sidecar`` apply the ``kind: Resiliency`` documents of
@@ -80,7 +87,7 @@ import signal
 import sys
 import time
 from typing import Awaitable, Callable
-from urllib.parse import urlsplit
+from urllib.parse import quote, urlencode, urlsplit
 
 from tasksrunner_torch.app import App
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, AppClient, http_request
@@ -507,7 +514,7 @@ async def _probe_replica(app_id: str, addr, index: int | None, headers: dict) ->
            "sidecar_port": addr.sidecar_port, "host": addr.host,
            "up_seconds": (round(time.time() - addr.registered_at)
                           if addr.registered_at else None),
-           "health": "down", "components": None, "subscriptions": None}
+           "health": "down", "components": None, "subscriptions": None, "actors": None}
     if NameResolver.local_pid_dead(addr.host, addr.pid, addr.registered_at):
         row["health"] = "stale"
         return row
@@ -533,6 +540,10 @@ async def _probe_replica(app_id: str, addr, index: int | None, headers: dict) ->
             meta = json.loads(body)
             row["components"] = len(meta.get("components") or [])
             row["subscriptions"] = len(meta.get("subscriptions") or [])
+            # the activations this replica owns; "-" with the gate off
+            actors = meta.get("actors")
+            if actors is not None:
+                row["actors"] = sum((actors.get("owned") or {}).values())
         elif status == 401:
             row["components"] = row["subscriptions"] = "auth"
     except errors:
@@ -577,12 +588,13 @@ def _cmd_ps(args) -> None:
 
         width = max(6, *(len(tag(r)) for r in rows))
         print(f"{'APP-ID':<{width}}  {'PID':>7}  {'APP':>5}  {'SIDECAR':>7}  "
-              f"{'HEALTH':<9}  {'COMPS':>5}  {'SUBS':>4}  UP")
+              f"{'HEALTH':<9}  {'COMPS':>5}  {'SUBS':>4}  {'ACTORS':>6}  UP")
         for r in rows:
             print(f"{tag(r):<{width}}  {r['pid'] or '-':>7}  {r['app_port'] or '-':>5}  "
                   f"{r['sidecar_port'] or '-':>7}  {r['health']:<9}  "
                   f"{'-' if r['components'] is None else r['components']:>5}  "
                   f"{'-' if r['subscriptions'] is None else r['subscriptions']:>4}  "
+                  f"{'-' if r['actors'] is None else r['actors']:>6}  "
                   f"{up(r['up_seconds'])}")
     if any_down:
         raise SystemExit(2)
@@ -1133,9 +1145,104 @@ def _cmd_dlq(args) -> None:
         broker.close_sync()
 
 
+def _cmd_actors(args) -> None:
+    """The cluster's actor placement table from ``--app-id``'s sidecar
+    (every replica renders the same one from the shared store): per type
+    (id count, owners, epoch and lease-age ranges, dead owners), per id
+    with ``--ids``, or the document with ``--json``."""
+    addrs, headers = _resolve_sidecars(args)
+    status, raw = asyncio.run(_sidecar_fetch(addrs[0], "GET", "/v1.0/actors", headers,
+                                             timeout=10))
+    if status == 404:
+        raise SystemExit("actor API not found — is TASKSRUNNER_ACTORS=1 set on the app?")
+    if status >= 400:
+        raise SystemExit(f"HTTP {status}: {raw.decode('utf-8', 'replace')}")
+    doc = json.loads(raw)
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return
+    placement = doc.get("placement") or []
+    if not placement:
+        types = ", ".join((doc.get("replica") or {}).get("types") or []) or "(none)"
+        print(f"no actors placed yet (hosted types: {types})")
+        return
+    if args.ids:
+        width = max(5, max(len(f"{r['type']}/{r['id']}") for r in placement))
+        print(f"{'ACTOR':<{width}}  {'OWNER':<28}  {'EPOCH':>5}  {'LEASE-AGE':>9}  ALIVE")
+        for r in placement:
+            print(f"{r['type'] + '/' + r['id']:<{width}}  {r.get('owner') or '-':<28}  "
+                  f"{r.get('epoch') or 0:>5}  {r.get('lease_age', 0):>8.1f}s  "
+                  f"{'yes' if r.get('alive') else 'NO'}")
+        return
+    by_type: dict[str, list[dict]] = {}
+    for r in placement:
+        by_type.setdefault(r["type"], []).append(r)
+    width = max(4, max(len(t) for t in by_type))
+    print(f"{'TYPE':<{width}}  {'IDS':>4}  {'OWNERS':>6}  {'EPOCH':>8}  {'LEASE-AGE':>12}  DEAD")
+    for atype, rows in sorted(by_type.items()):
+        owners = {r.get("owner") for r in rows if r.get("owner")}
+        epochs = [int(r.get("epoch") or 0) for r in rows]
+        ages = [float(r.get("lease_age") or 0.0) for r in rows]
+        dead = sum(1 for r in rows if not r.get("alive"))
+        print(f"{atype:<{width}}  {len(rows):>4}  {len(owners):>6}  "
+              f"{min(epochs)}-{max(epochs):<4}  {min(ages):>5.1f}-{max(ages):<5.1f}  "
+              f"{dead or '-'}")
+
+
+def _cmd_workflows(args) -> None:
+    """The workflow plane through ``--app-id``'s sidecar: the instances,
+    one instance (``--history``: its events), or a start, a termination
+    or an external event."""
+    if (args.terminate or args.raise_event or args.history) and not args.instance:
+        raise SystemExit("this operation needs an instance id")
+    addrs, headers = _resolve_sidecars(args)
+    input_doc = json.loads(args.input) if args.input else None
+    base = "/v1.0/workflows/engine"
+    if args.start:
+        target = f"{base}/{quote(args.start)}/start" + (
+            f"?{urlencode({'instanceID': args.instance})}" if args.instance else "")
+        method, body = "POST", input_doc
+    elif args.terminate:
+        target, method, body = f"{base}/{args.instance}/terminate", "POST", {
+            "reason": args.reason}
+    elif args.raise_event:
+        target = f"{base}/{args.instance}/raiseEvent/{quote(args.raise_event)}"
+        method, body = "POST", input_doc
+    elif args.instance:
+        target = f"{base}/{args.instance}" + ("/history" if args.history else "")
+        method, body = "GET", None
+    else:
+        target, method, body = "/v1.0/workflows", "GET", None
+    status, raw = asyncio.run(_sidecar_fetch(
+        addrs[0], method, target, headers, b"" if body is None else json.dumps(body).encode(),
+        timeout=15))
+    if status == 404 and not args.instance and not args.start:
+        raise SystemExit("workflow API not found — is TASKSRUNNER_WORKFLOWS=1 set on the app?")
+    if status >= 400:
+        raise SystemExit(f"HTTP {status}: {raw.decode('utf-8', 'replace')}")
+    if not raw:
+        print("ok")
+        return
+    doc = json.loads(raw)
+    if (args.json or args.history or args.start or not isinstance(doc, dict)
+            or "instances" not in doc):
+        print(json.dumps(doc, indent=2))
+        return
+    rows = doc["instances"]
+    if not rows:
+        print("no workflow instances")
+        return
+    width = max(8, max(len(r["instance"]) for r in rows))
+    wfw = max(8, max(len(r.get("workflow") or "") for r in rows))
+    print(f"{'INSTANCE':<{width}}  {'WORKFLOW':<{wfw}}  {'STATUS':<10}  {'EVENTS':>6}  PARENT")
+    for r in rows:
+        print(f"{r['instance']:<{width}}  {r.get('workflow') or '-':<{wfw}}  "
+              f"{r.get('status') or '-':<10}  {r.get('events') or 0:>6}  "
+              f"{r.get('parent') or '-'}")
+
+
 #: the verbs whose modules are not ported yet, with their ROADMAP items
-NOT_PORTED = {"actors": "A21", "workflows": "A21",
-              "chaos": "A23", "lint": "A27", "verify": "A27"}
+NOT_PORTED = {"chaos": "A23", "lint": "A27", "verify": "A27"}
 
 
 def _cmd_not_ported(args) -> None:
@@ -1347,6 +1454,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory a relative brokerPath or queuePath resolves against (the "
                         "run file's directory)")
     p.set_defaults(fn=_cmd_dlq)
+
+    p = sub.add_parser("actors", help="the virtual-actor placement table (type → ids → owner "
+                                      "→ lease/epoch)")
+    p.add_argument("--app-id", required=True,
+                   help="any actor-hosting app; every replica serves the same table")
+    p.add_argument("--ids", action="store_true",
+                   help="one row per actor id instead of the per-type aggregate")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_actors)
+
+    p = sub.add_parser("workflows", help="durable workflow instances (list / status / start / "
+                                         "terminate / raise)")
+    p.add_argument("instance", nargs="?", default=None,
+                   help="instance id: show its status (default lists all)")
+    p.add_argument("--app-id", required=True, help="any workflow-hosting app replica")
+    p.add_argument("--history", action="store_true",
+                   help="dump the instance's full event history")
+    p.add_argument("--start", default=None, metavar="WORKFLOW",
+                   help="start WORKFLOW (optionally with a fixed instance id and --input)")
+    p.add_argument("--terminate", action="store_true",
+                   help="terminate the instance (--reason records why)")
+    p.add_argument("--reason", default="terminated")
+    p.add_argument("--raise-event", default=None, metavar="EVENT",
+                   help="deliver external event EVENT (payload via --input)")
+    p.add_argument("--input", default=None, help="JSON payload for --start / --raise-event")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--registry-file", **registry)
+    p.set_defaults(fn=_cmd_workflows)
 
     for name, item in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")

@@ -2,7 +2,9 @@
 ``AppClient`` the scorer and its callers use, with its transports behind
 one surface (``save_state``, ``get_state``, ``query_state``,
 ``query_state_values``, ``publish_event``, ``invoke_binding``,
-``invoke_method``).
+``invoke_method``, and the actor calls ``invoke_actor``,
+``register_actor_reminder``, ``unregister_actor_reminder`` and
+``get_actor_state``).
 
 * :meth:`AppClient.http` talks to a sidecar over HTTP/1.1 on
   ``127.0.0.1``: the Dapr-shaped ``/v1.0/state/{store}``,
@@ -20,13 +22,15 @@ one surface (``save_state``, ``get_state``, ``query_state``,
   epoch its store last answered with (``x-tasksrunner-placement-epoch``);
   on a 409 that carries the store's epoch it keeps that one and retries
   once, and a second such 409 raises
-  :class:`~tasksrunner_torch.errors.PlacementEpochError`.
+  :class:`~tasksrunner_torch.errors.PlacementEpochError`. An actor call
+  answered 409 raises :class:`~tasksrunner_torch.errors.ActorFencedError`
+  (the owner fenced the turn: retry), as the JAX client does.
 * :meth:`AppClient.direct` goes through an in-process host
   (:class:`~tasksrunner_torch.hosting.InProcHost`): state, publish and
   invoke, no queries and no bindings.
 * :meth:`AppClient.runtime` calls a :class:`~tasksrunner_torch.runtime.Runtime`
   in the same process (an app beside its sidecar in
-  :class:`~tasksrunner_torch.hosting.AppHost`).
+  :class:`~tasksrunner_torch.hosting.AppHost`), actors included.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Any
 from urllib.parse import quote
 
 from tasksrunner_torch.bindings.base import BindingResponse
-from tasksrunner_torch.errors import InvocationError, PlacementEpochError
+from tasksrunner_torch.errors import ActorFencedError, InvocationError, PlacementEpochError
 from tasksrunner_torch.state.placement import PLACEMENT_EPOCH_HEADER
 from tasksrunner_torch.tracing import TRACEPARENT_HEADER, outgoing_headers
 
@@ -186,6 +190,45 @@ class _HTTPTransport:
         path = f"/v1.0/invoke/{quote(app_id)}/method/" + method_path.lstrip("/")
         return await self._request(http_method, path, headers=headers, body=body)
 
+    async def _actor(self, context: str, method: str, path: str, data: Any = None) -> bytes:
+        body = b"" if data is None else json.dumps(data).encode()
+        headers = {"content-type": "application/json"} if body else {}
+        status, _, payload = await self._request(method, path, headers=headers, body=body)
+        if status == 409:
+            raise ActorFencedError(f"{context}: {payload[:200]!r}")
+        if status >= 300:
+            raise InvocationError(f"{context}: {status} {payload[:200]!r}", status=status)
+        return payload
+
+    async def invoke_actor(self, actor_type: str, actor_id: str, method: str,
+                           data: Any) -> Any:
+        payload = await self._actor(
+            f"actor {actor_type}/{actor_id}.{method}", "PUT",
+            f"/v1.0/actors/{quote(actor_type)}/{quote(actor_id, safe='')}/method/{quote(method)}",
+            data)
+        return json.loads(payload).get("result") if payload else None
+
+    async def register_actor_reminder(self, actor_type: str, actor_id: str, name: str,
+                                      due_seconds: float, period_seconds: float | None,
+                                      data: Any) -> None:
+        await self._actor(
+            f"actor reminder {actor_type}/{actor_id}", "POST",
+            f"/v1.0/actors/{quote(actor_type)}/{quote(actor_id, safe='')}/reminders/"
+            f"{quote(name)}",
+            {"dueSeconds": due_seconds, "periodSeconds": period_seconds, "data": data})
+
+    async def unregister_actor_reminder(self, actor_type: str, actor_id: str,
+                                        name: str) -> None:
+        await self._actor(
+            f"actor reminder {actor_type}/{actor_id}", "DELETE",
+            f"/v1.0/actors/{quote(actor_type)}/{quote(actor_id, safe='')}/reminders/"
+            f"{quote(name)}")
+
+    async def get_actor_state(self, actor_type: str, actor_id: str) -> dict:
+        return json.loads(await self._actor(
+            f"actor state {actor_type}/{actor_id}", "GET",
+            f"/v1.0/actors/{quote(actor_type)}/{quote(actor_id, safe='')}/state"))
+
 
 class _DirectTransport:
     def __init__(self, host: Any, app_id: str) -> None:
@@ -232,6 +275,24 @@ class _RuntimeTransport:
                      headers: dict[str, str], body: bytes) -> tuple[int, dict[str, str], bytes]:
         return await self._rt.invoke(app_id, method_path, http_method=http_method,
                                      headers=headers, body=body)
+
+    async def invoke_actor(self, actor_type: str, actor_id: str, method: str,
+                           data: Any) -> Any:
+        return await self._rt.invoke_actor(actor_type, actor_id, method, data)
+
+    async def register_actor_reminder(self, actor_type: str, actor_id: str, name: str,
+                                      due_seconds: float, period_seconds: float | None,
+                                      data: Any) -> None:
+        await self._rt.register_actor_reminder(actor_type, actor_id, name,
+                                               due_seconds=due_seconds,
+                                               period_seconds=period_seconds, data=data)
+
+    async def unregister_actor_reminder(self, actor_type: str, actor_id: str,
+                                        name: str) -> None:
+        await self._rt.unregister_actor_reminder(actor_type, actor_id, name)
+
+    async def get_actor_state(self, actor_type: str, actor_id: str) -> dict:
+        return await self._rt.get_actor_state(actor_type, actor_id)
 
 
 class AppClient:
@@ -290,3 +351,24 @@ class AppClient:
         status, reply_headers, payload = await self._t.invoke(
             app_id, method_path, http_method, headers, body)
         return InvocationResponse(status, reply_headers, payload)
+
+    # -- actors (not on the in-process host's client) ----------------------
+
+    async def invoke_actor(self, actor_type: str, actor_id: str, method: str,
+                           data: Any = None) -> Any:
+        """One turn of the actor, wherever it lives; its result."""
+        return await self._t.invoke_actor(actor_type, actor_id, method, data)
+
+    async def register_actor_reminder(self, actor_type: str, actor_id: str, name: str, *,
+                                      due_seconds: float, period_seconds: float | None = None,
+                                      data: Any = None) -> None:
+        await self._t.register_actor_reminder(actor_type, actor_id, name, due_seconds,
+                                              period_seconds, data)
+
+    async def unregister_actor_reminder(self, actor_type: str, actor_id: str,
+                                        name: str) -> None:
+        await self._t.unregister_actor_reminder(actor_type, actor_id, name)
+
+    async def get_actor_state(self, actor_type: str, actor_id: str) -> dict:
+        """The actor's durable record: ``{"epoch", "data", "reminders"}``."""
+        return await self._t.get_actor_state(actor_type, actor_id)

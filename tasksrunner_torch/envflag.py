@@ -51,6 +51,14 @@ DECLARED = frozenset({
     "TASKSRUNNER_UVLOOP",          # bool, off: uvloop's loop policy where installed
     "TASKSRUNNER_SLOW_THRESHOLD_SECONDS",  # float, 0.25: an exemplar at or above it
     "TASKSRUNNER_TRACE_DB",        # path, .tasksrunner/traces.db; empty: no recording
+    "TASKSRUNNER_ACTORS",          # bool, off: the virtual-actor runtime and its routes
+    "TASKSRUNNER_ACTOR_LEASE_SECONDS",  # float, 30: an actor owner's lease
+    "TASKSRUNNER_ACTOR_REMINDER_POLL_SECONDS",  # float, 2: the sweep's period
+    "TASKSRUNNER_ACTOR_TURN_TIMEOUT_SECONDS",  # float, 30: one turn's deadline
+    "TASKSRUNNER_WORKFLOWS",       # bool, off: the workflow plane (boots actors too)
+    "TASKSRUNNER_WORKFLOW_ACTIVITY_TIMEOUT_SECONDS",  # float, 30: an attempt's deadline
+    "TASKSRUNNER_WORKFLOW_HISTORY_RETAIN_SECONDS",  # float, 3600: a terminal history's life
+    "TASKSRUNNER_WORKFLOW_REPLAY_BATCH",  # int, 16: activities one turn runs
 })
 
 

@@ -1,5 +1,6 @@
 """The errors of the port: the part of ``tasksrunner/errors.py`` the
-scorer, its runtime, its sidecar and its bindings raise.
+scorer, its runtime, its sidecar, its bindings, its actors and its
+workflows raise.
 
 Every error below :class:`TasksRunnerError` carries the HTTP status the
 sidecar answers it with (:attr:`TasksRunnerError.http_status`), as in the
@@ -191,3 +192,52 @@ class AppNotFound(InvocationError):
     """Name resolution found no app of the target id."""
 
     http_status = 404
+
+
+class ActorError(TasksRunnerError):
+    """A virtual-actor operation failed (:mod:`tasksrunner_torch.actors`)."""
+
+    http_status = 500
+
+
+class ActorNotRegistered(ActorError):
+    """The app hosts no handler for the requested actor type."""
+
+    http_status = 404
+
+
+class ActorFencedError(ActorError):
+    """A turn's commit was refused by epoch fencing: a newer owner bumped
+    the actor record's epoch (and so its etag), so this owner's commit,
+    that of a zombie that lost its lease or crashed, did not land. The
+    turn was not acknowledged; the caller retries against the new owner."""
+
+    http_status = 409
+
+
+class WorkflowError(TasksRunnerError):
+    """A durable-workflow operation failed (:mod:`tasksrunner_torch.workflows`)."""
+
+    http_status = 500
+
+
+class WorkflowNotFound(WorkflowError):
+    """No workflow instance, or no registered workflow of that name."""
+
+    http_status = 404
+
+
+class WorkflowNondeterminismError(WorkflowError):
+    """Replay diverged from the recorded history: the orchestrator
+    scheduled other work than the history records at a sequence number,
+    or awaited something that is not a workflow task. The instance fails
+    rather than run side effects again."""
+
+    http_status = 500
+
+
+class ActivityError(WorkflowError):
+    """An activity used up its retry policy. Awaiting its task in the
+    orchestrator raises this, so a saga can branch into compensation."""
+
+    http_status = 500

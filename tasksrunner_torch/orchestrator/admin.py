@@ -26,8 +26,14 @@ Routes, on 127.0.0.1 (``admin_port``, else a free port):
   (``{"reshard", "apps": {app: {"app_id", "last_sweep", "stores"}}}``):
   the placement loops' last sweep with ``TASKSRUNNER_RESHARD`` on, else
   one sweep made for the request.
+* ``GET /admin/actors``: the actor placement table (``{"placement":
+  [rows sorted by type and id], "replicas": [each replica's summary with
+  its app_id]}``): every replica computes the same table from the shared
+  store, so the first replica of an app that answers its sidecar's
+  ``/v1.0/actors`` gives it; the summaries come from every replica that
+  answers (5 s each).
 
-``/admin/actors`` (ROADMAP A21) answers 501 "not ported yet". An unknown app is a 404 naming the running ones. When
+An unknown app is a 404 naming the running ones. When
 ``TASKSRUNNER_API_TOKEN`` is set every request needs it in the
 ``tr-api-token`` header (401), the sidecars' header.
 
@@ -90,12 +96,6 @@ class _HTTPError(Exception):
         self.status = status
 
 
-def _not_ported(item: str):
-    async def handler(req: Request) -> Response:
-        return Response(501, {"error": f"{req.path} is not ported yet (ROADMAP {item})"})
-    return handler
-
-
 class AdminServer:
     def __init__(self, orch: "Orchestrator", *, port: int = 0, host: str = "127.0.0.1") -> None:
         self.orch = orch
@@ -113,7 +113,7 @@ class AdminServer:
         add("POST", "/admin/apps/{app_id}/scale", self._scale)
         add("GET", "/admin/apps/{app_id}/metrics", self._metrics)
         add("GET", "/admin/traces/{trace_id}", self._traces)
-        add("GET", "/admin/actors", _not_ported("A21"))
+        add("GET", "/admin/actors", self._actors)
         add("GET", "/admin/placement", self._placement)
 
     # -- lifecycle -------------------------------------------------------
@@ -281,6 +281,34 @@ class AdminServer:
                     sources.append(doc["spans"])
         spans = await asyncio.to_thread(assemble_trace, sources, trace_id)
         return Response(200, {"trace_id": trace_id, "replicas": replicas, "spans": spans})
+
+    async def _actors(self, req: Request) -> Response:
+        token = os.environ.get(TOKEN_ENV)
+        headers = {TOKEN_HEADER: token} if token else {}
+        placement: list[dict] = []
+        replicas: list[dict] = []
+        for app_id, app_replicas in sorted(self.orch.replicas.items()):
+            have_table = False
+            for replica in app_replicas:
+                if not replica.ports:
+                    continue
+                try:
+                    status, _, body = await asyncio.wait_for(http_request(
+                        "127.0.0.1", replica.ports[1], "GET", "/v1.0/actors",
+                        headers=headers), 5)
+                    if status != 200:
+                        continue
+                    doc = json.loads(body)
+                except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError,
+                        ValueError):
+                    continue  # a dead replica must not fail the view
+                if doc.get("replica"):
+                    replicas.append({"app_id": app_id, **doc["replica"]})
+                if not have_table and doc.get("placement"):
+                    placement.extend(doc["placement"])
+                    have_table = True
+        placement.sort(key=lambda r: (r.get("type") or "", r.get("id") or ""))
+        return Response(200, {"placement": placement, "replicas": replicas})
 
     async def _placement(self, req: Request) -> Response:
         controllers = self.orch.placement

@@ -1,5 +1,5 @@
 """The runtime behind a sidecar: the port of ``tasksrunner/runtime.py``
-without actors, workflows, chaos and the mTLS mesh.
+without chaos (ROADMAP A23) and the mTLS mesh (A22).
 
 One :class:`Runtime` per app identity holds the app's scoped
 :class:`~tasksrunner_torch.component.registry.ComponentRegistry` and a
@@ -49,6 +49,18 @@ app beside it in one process calls it directly
   ``traceparent`` and ``baggage``; 2xx acks, 429/503 with
   ``Retry-After`` defers without using up an attempt, anything else
   nacks (:func:`~tasksrunner_torch.pubsub.base.delivery_outcome`).
+  Then, with ``TASKSRUNNER_ACTORS`` or ``TASKSRUNNER_WORKFLOWS`` on, the
+  actor types the app hosts (``GET /tasksrunner/actors``) get an
+  :class:`~tasksrunner_torch.actors.ActorRuntime`, and with
+  ``TASKSRUNNER_WORKFLOWS`` on an app that hosts the ``_Workflow`` type
+  gets a :class:`~tasksrunner_torch.workflows.WorkflowRuntime`, its
+  engine driven at the actor sweep's period.
+* **Actors**: ``invoke_actor``, ``register_actor_reminder``,
+  ``unregister_actor_reminder`` and ``get_actor_state``
+  (:class:`~tasksrunner_torch.errors.ActorError` with the gate off or no
+  actor type hosted); ``save_state_item`` is the one-key save that
+  returns the new etag, which the actor commit chain guards the next
+  write with.
 
 Metrics, in the process-wide registry: ``state_op_latency_seconds``,
 ``state_query{store}``, ``publish_latency_seconds``, ``invoke_latency_seconds``,
@@ -74,8 +86,9 @@ from tasksrunner_torch.bindings.base import (
 )
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER, http_request
 from tasksrunner_torch.component.registry import ComponentRegistry
+from tasksrunner_torch.envflag import env_flag
 from tasksrunner_torch.errors import (
-    AppNotFound, BindingError, ComponentNotFound, InvocationError, StateError,
+    ActorError, AppNotFound, BindingError, ComponentNotFound, InvocationError, StateError,
 )
 from tasksrunner_torch.invoke.resolver import NameResolver
 from tasksrunner_torch.metrics import metrics
@@ -152,6 +165,14 @@ class Runtime:
         #: the input bindings this runtime started
         self._input_bindings: list[InputBinding] = []
         self._started = False
+        #: the ActorRuntime when the gate is on and the app hosts actor types
+        self.actors = None
+        #: (host, sidecar port) that actor placement records advertise, so
+        #: peers can forward turns here; the sidecar sets it before start()
+        self.actor_address: tuple[str, int] | None = None
+        #: the WorkflowRuntime when TASKSRUNNER_WORKFLOWS is on and the app
+        #: hosts the workflow actor type
+        self.workflows = None
 
     async def _guarded(self, component_name: str, fn: Callable[[], Awaitable]) -> Any:
         """``fn`` under the component's outbound policy, if it has one."""
@@ -197,12 +218,29 @@ class Runtime:
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="save")
 
-    async def get_state(self, store_name: str, key: str) -> StateItem | None:
+    async def save_state_item(self, store_name: str, key: str, value: Any, *,
+                              etag: str | None = None) -> str:
+        """One item saved as :meth:`save_state` saves it; returns the new etag."""
+        self._authorize(store_name, "write")
+        store, prefixer = self._state_store(store_name)
+        started = time.perf_counter()
+        new_etag = await self._guarded(
+            store_name, lambda: store.set(prefixer.apply(key), value, etag=etag))
+        metrics.inc("state_save", store=store_name)
+        metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
+                        store=store_name, op="save")
+        return new_etag
+
+    async def get_state(self, store_name: str, key: str, *,
+                        consistency: str = "eventual") -> StateItem | None:
+        """``consistency="strong"`` reads a replica set's leader even where
+        ``followerReads`` would send the read to a follower."""
         self._authorize(store_name, "read")
         store, prefixer = self._state_store(store_name)
         metrics.inc("state_get", store=store_name)
         started = time.perf_counter()
-        item = await self._guarded(store_name, lambda: store.get(prefixer.apply(key)))
+        read = getattr(store, "get_strong", store.get) if consistency == "strong" else store.get
+        item = await self._guarded(store_name, lambda: read(prefixer.apply(key)))
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="get")
         return item
@@ -258,6 +296,34 @@ class Runtime:
         metrics.inc("state_transact", store=store_name)
         metrics.observe("state_op_latency_seconds", time.perf_counter() - started,
                         store=store_name, op="transact")
+
+    # -- actors ----------------------------------------------------------
+
+    def _actor_runtime(self):
+        if self.actors is None:
+            raise ActorError("virtual actors are disabled: set TASKSRUNNER_ACTORS=1 and "
+                             "register at least one @app.actor handler")
+        return self.actors
+
+    async def invoke_actor(self, actor_type: str, actor_id: str, method: str,
+                           data: Any = None, *, forwarded: bool = False) -> Any:
+        return await self._actor_runtime().invoke_turn(actor_type, actor_id, method, data,
+                                                       forwarded=forwarded)
+
+    async def register_actor_reminder(self, actor_type: str, actor_id: str, name: str, *,
+                                      due_seconds: float, period_seconds: float | None = None,
+                                      data: Any = None, forwarded: bool = False) -> None:
+        await self._actor_runtime().register_reminder(
+            actor_type, actor_id, name, due_seconds=due_seconds,
+            period_seconds=period_seconds, data=data, forwarded=forwarded)
+
+    async def unregister_actor_reminder(self, actor_type: str, actor_id: str, name: str, *,
+                                        forwarded: bool = False) -> None:
+        await self._actor_runtime().unregister_reminder(actor_type, actor_id, name,
+                                                        forwarded=forwarded)
+
+    async def get_actor_state(self, actor_type: str, actor_id: str) -> dict:
+        return await self._actor_runtime().read_state(actor_type, actor_id)
 
     # -- secrets ---------------------------------------------------------
 
@@ -426,6 +492,33 @@ class Runtime:
                 binding.running = True
                 self._input_bindings.append(binding)
                 logger.info("input binding %s -> %s", name, binding.route)
+        # workflow instances are actors: either gate boots the actor runtime
+        if (env_flag("TASKSRUNNER_ACTORS", default=False)
+                or env_flag("TASKSRUNNER_WORKFLOWS", default=False)):
+            await self._start_actors()
+
+    async def _start_actors(self) -> None:
+        """Ask the app which actor types it hosts; boot the actor runtime
+        when there are any, then the workflow plane."""
+        status, _, body = await self.app_channel.request("GET", "/tasksrunner/actors")
+        types = json.loads(body) if status == 200 and body else []
+        if not types:
+            return
+        from tasksrunner_torch.actors import ActorRuntime
+        self.actors = ActorRuntime(self, types)
+        await self.actors.start()
+        await self._start_workflows()
+
+    async def _start_workflows(self) -> None:
+        from tasksrunner_torch.workflows import WORKFLOW_ACTOR_TYPE, WorkflowRuntime
+        if (not env_flag("TASKSRUNNER_WORKFLOWS", default=False)
+                or WORKFLOW_ACTOR_TYPE not in self.actors.types):
+            return
+        self.workflows = WorkflowRuntime(self, self.actors)
+        # an app in this process drives its instances at the sweep's period
+        engine = getattr(getattr(self.app_channel, "app", None), "workflow_engine", None)
+        if engine is not None:
+            engine.drive_period = self.actors.poll_seconds
 
     def _make_subscription_handler(self, pubsub_name: str,
                                    route: str) -> Callable[[Message], Awaitable[bool | Nack]]:
@@ -512,6 +605,10 @@ class Runtime:
             "metric_kinds": metrics.snapshot_kinds(),
             "histograms": metrics.snapshot_histograms(),
         }
+        if self.actors is not None:
+            out["actors"] = self.actors.summary()
+        if self.workflows is not None:
+            out["workflows"] = self.workflows.summary()
         # the sharded stores already built (a read builds none)
         placement = {n: doc_of() for n in self.registry.names("state")
                      if (doc_of := getattr(self.registry._instances.get(n), "placement_doc",
@@ -521,6 +618,12 @@ class Runtime:
         return out
 
     async def stop(self) -> None:
+        if self.workflows is not None:
+            self.workflows.detach()
+            self.workflows = None
+        if self.actors is not None:
+            await self.actors.stop()
+            self.actors = None
         for _, _, cancel in self._subscriptions:
             await cancel()
         self._subscriptions.clear()

@@ -33,6 +33,23 @@
   epoch a caller used, is checked against a sharded store's placement
   epoch before the operation: another epoch is a 409 whose header of the
   same name carries the live one (a bad number is a 400);
+* with ``TASKSRUNNER_ACTORS`` or ``TASKSRUNNER_WORKFLOWS`` on (workflow
+  turns are forwarded to their owner through these): any method on
+  ``/v1.0/actors/{type}/{id}/method/{m}`` (``{"result"}``; a peer's
+  forward carries ``x-tasksrunner-actor-forward: 1`` and is never
+  forwarded again), ``POST`` (``{"dueSeconds", "periodSeconds"?,
+  "data"?}``, 204) and ``DELETE`` (204) of
+  ``/v1.0/actors/{type}/{id}/reminders/{name}``, ``GET
+  /v1.0/actors/{type}/{id}/state`` (the record) and ``GET /v1.0/actors``
+  (``{"replica": summary, "placement": [rows]}``);
+* with ``TASKSRUNNER_WORKFLOWS`` on, the Dapr-shaped workflow routes
+  (``{component}`` is accepted and ignored): ``POST
+  /v1.0/workflows/{component}/{name}/start[?instanceID=]``
+  (``{"instanceID"}``), ``GET /v1.0/workflows/{component}/{instance}``
+  (its status) and ``.../history``, ``POST .../terminate``
+  (``{"reason"}``, 202), ``POST .../raiseEvent/{event}[?eventID=]`` (202)
+  and ``GET /v1.0/workflows`` (``{"instances": [...]}``); with both flags
+  off none of these routes exists;
 * ``GET /v1.0/healthz`` (204), ``GET /v1.0/metadata`` (``placement``: each
   sharded store's epoch, assignment and heat) and ``GET
   /metrics``: the process-wide registry as Prometheus text 0.0.4
@@ -73,7 +90,10 @@ from tasksrunner_torch import flightrec, spans
 from tasksrunner_torch.admission import AdmissionController
 from tasksrunner_torch.app import App, Request, Response, Router, start_server
 from tasksrunner_torch.client import TOKEN_ENV, TOKEN_HEADER
-from tasksrunner_torch.errors import PlacementEpochError, TasksRunnerError, ValidationError
+from tasksrunner_torch.envflag import env_flag
+from tasksrunner_torch.errors import (
+    PlacementEpochError, TasksRunnerError, ValidationError, WorkflowError,
+)
 from tasksrunner_torch.invoke.headers import inward_headers, outward_headers
 from tasksrunner_torch.metrics import metrics, render_prometheus
 from tasksrunner_torch.probes import EventLoopLagProbe
@@ -302,6 +322,116 @@ class Sidecar:
         add("GET", "/v1.0/metadata", metadata, kind="exempt")
         # an operator pulls a trace exactly when the replica is in trouble
         add("GET", "/v1.0/traces/{trace_id}", get_trace, kind="exempt")
+        workflows_on = env_flag("TASKSRUNNER_WORKFLOWS", default=False)
+        if workflows_on or env_flag("TASKSRUNNER_ACTORS", default=False):
+            self._actor_routes()
+        if workflows_on:
+            self._workflow_routes()
+
+    def _actor_routes(self) -> None:
+        runtime, add = self.runtime, self.router.add
+
+        from tasksrunner_torch.actors.runtime import FORWARD_HEADER
+
+        def forwarded(req: Request) -> bool:
+            return req.headers.get(FORWARD_HEADER) == "1"
+
+        async def invoke_actor(req: Request) -> Response:
+            data = json.loads(req.body) if req.body else None
+            p = req.path_params
+            result = await runtime.invoke_actor(p["atype"], p["aid"], p["m"], data,
+                                                forwarded=forwarded(req))
+            return _json_reply({"result": result})
+
+        async def register_actor_reminder(req: Request) -> Response:
+            body = json.loads(req.body)
+            if not isinstance(body, dict) or "dueSeconds" not in body:
+                raise ValidationError('reminder body must be {"dueSeconds": n, '
+                                      '"periodSeconds"?: n, "data"?: ...}')
+            p = req.path_params
+            await runtime.register_actor_reminder(
+                p["atype"], p["aid"], p["name"], due_seconds=float(body["dueSeconds"]),
+                period_seconds=(float(body["periodSeconds"])
+                                if body.get("periodSeconds") is not None else None),
+                data=body.get("data"), forwarded=forwarded(req))
+            return Response(204)
+
+        async def unregister_actor_reminder(req: Request) -> Response:
+            p = req.path_params
+            await runtime.unregister_actor_reminder(p["atype"], p["aid"], p["name"],
+                                                    forwarded=forwarded(req))
+            return Response(204)
+
+        async def get_actor_state(req: Request) -> Response:
+            return _json_reply(await runtime.get_actor_state(req.path_params["atype"],
+                                                             req.path_params["aid"]))
+
+        async def actor_placement(req: Request) -> Response:
+            if runtime.actors is None:
+                return _json_reply({"replica": None, "placement": []})
+            return _json_reply({"replica": runtime.actors.summary(),
+                                "placement": await runtime.actors.placement_table()})
+
+        # a peer replica forwarding a turn to the owner uses its own token
+        add("*", "/v1.0/actors/{atype}/{aid}/method/{m}", invoke_actor, kind="peer")
+        add("POST", "/v1.0/actors/{atype}/{aid}/reminders/{name}", register_actor_reminder,
+            kind="peer")
+        add("DELETE", "/v1.0/actors/{atype}/{aid}/reminders/{name}",
+            unregister_actor_reminder, kind="peer")
+        add("GET", "/v1.0/actors/{atype}/{aid}/state", get_actor_state)
+        # an operator's view, most wanted during overload and failover
+        add("GET", "/v1.0/actors", actor_placement, kind="exempt")
+
+    def _workflow_routes(self) -> None:
+        runtime, add = self.runtime, self.router.add
+
+        def plane():
+            if runtime.workflows is None:
+                raise WorkflowError("the workflow plane is not running on this replica "
+                                    "(no @app.workflow registered?)")
+            return runtime.workflows
+
+        def query(req: Request, name: str) -> str | None:
+            return (parse_qs(req.query).get(name) or [None])[-1] or None
+
+        async def start_workflow(req: Request) -> Response:
+            data = json.loads(req.body) if req.body else None
+            instance = await plane().start(req.path_params["name"], data,
+                                           instance=query(req, "instanceID"))
+            return _json_reply({"instanceID": instance})
+
+        async def workflow_status(req: Request) -> Response:
+            return _json_reply(await plane().status(req.path_params["instance"]))
+
+        async def workflow_history(req: Request) -> Response:
+            instance = req.path_params["instance"]
+            return _json_reply({"instance": instance,
+                                "history": await plane().history(instance)})
+
+        async def terminate_workflow(req: Request) -> Response:
+            data = json.loads(req.body) if req.body else {}
+            await plane().terminate(req.path_params["instance"],
+                                    reason=str((data or {}).get("reason") or "terminated"))
+            return Response(202)
+
+        async def raise_workflow_event(req: Request) -> Response:
+            data = json.loads(req.body) if req.body else None
+            await plane().raise_event(req.path_params["instance"], req.path_params["event"],
+                                      data=data, id=query(req, "eventID"))
+            return Response(202)
+
+        async def list_workflows(req: Request) -> Response:
+            if runtime.workflows is None:
+                return _json_reply({"instances": []})
+            return _json_reply({"instances": await runtime.workflows.list()})
+
+        add("POST", "/v1.0/workflows/{component}/{name}/start", start_workflow)
+        add("GET", "/v1.0/workflows/{component}/{instance}", workflow_status)
+        add("GET", "/v1.0/workflows/{component}/{instance}/history", workflow_history)
+        add("POST", "/v1.0/workflows/{component}/{instance}/terminate", terminate_workflow)
+        add("POST", "/v1.0/workflows/{component}/{instance}/raiseEvent/{event}",
+            raise_workflow_event)
+        add("GET", "/v1.0/workflows", list_workflows, kind="exempt")
 
     # -- lifecycle -------------------------------------------------------
 
@@ -314,6 +444,8 @@ class Sidecar:
             self._lag_probe = EventLoopLagProbe()
         self._server = await start_server(self.handle, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]
+        # placement records advertise it; set before the actor runtime boots
+        self.runtime.actor_address = (self.host, self.port)
         await self.runtime.start()
         if self._lag_probe is not None:
             self._lag_probe.start()

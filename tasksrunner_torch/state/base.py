@@ -7,7 +7,10 @@ first-write-wins) and is refused with
 differs. A store's methods:
 
 * ``get(key)`` → :class:`StateItem` or None, ``bulk_get(keys)``;
-* ``set(key, value, *, etag=None)`` → the new etag;
+* ``set(key, value, *, etag=None)`` → the new etag; an etag of
+  :data:`ABSENT_ETAG` expects the key absent, so of two creates of one
+  key the first wins and the second is refused (no store hands that etag
+  out: etags count up from 1);
 * ``delete(key, *, etag=None)`` → whether the key existed;
 * ``transact(ops)``: :class:`TransactionOp` s applied atomically, every
   etag checked against the state before the transaction;
@@ -22,6 +25,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Literal
+
+#: the etag a write names to expect its key absent (a guarded create); the
+#: JAX package has none, so its first creates are unguarded
+ABSENT_ETAG = "0"
 
 
 @dataclass

@@ -17,7 +17,7 @@ from typing import Any
 from tasksrunner_torch.component.registry import driver
 from tasksrunner_torch.component.spec import ComponentSpec
 from tasksrunner_torch.errors import EtagMismatch
-from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
+from tasksrunner_torch.state.base import ABSENT_ETAG, QueryResponse, StateItem, TransactionOp
 from tasksrunner_torch.state.query import run_query
 
 
@@ -36,7 +36,8 @@ class InMemoryStateStore:
         return [await self.get(key) for key in keys]
 
     def _check(self, key: str, etag: str | None) -> None:
-        if etag is not None and (key not in self._items or self._items[key][1] != etag):
+        stored = self._items[key][1] if key in self._items else ABSENT_ETAG
+        if etag is not None and stored != etag:
             raise EtagMismatch(f"etag mismatch for key {key!r}")
 
     def _set(self, key: str, text: str) -> str:

@@ -660,6 +660,11 @@ class ReplicaSetStore:
     async def get(self, key: str) -> StateItem | None:
         return await (await self._read_node()).store.get(key)
 
+    async def get_strong(self, key: str) -> StateItem | None:
+        """A read from the leader whatever ``followerReads`` says: it sees
+        every acknowledged write (the actor runtime's reads)."""
+        return await (await self._leader_node()).store.get(key)
+
     async def bulk_get(self, keys: list[str]) -> list[StateItem | None]:
         return await (await self._read_node()).store.bulk_get(keys)
 

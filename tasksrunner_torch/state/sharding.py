@@ -184,6 +184,15 @@ class ShardedStateStore:
         finally:
             self._exit()
 
+    async def get_strong(self, key: str) -> StateItem | None:
+        """:meth:`get` from the leader of a replica set's shard."""
+        await self._enter()
+        try:
+            child = self.shard_for(key)
+            return await getattr(child, "get_strong", child.get)(key)
+        finally:
+            self._exit()
+
     async def set(self, key: str, value: Any, *, etag: str | None = None) -> str:
         await self._enter()
         try:
@@ -329,6 +338,20 @@ class ShardedStateStore:
         for i, rate in enumerate(self.heat.rates()):
             metrics.set_gauge("shard_heat", rate, store=self.name, shard=i)
         return doc
+
+    def locality_rank(self, key: str) -> float:
+        """1.0 when this process's member leads the shard that holds
+        ``key`` (or nothing is known), 0.0 when another member does: the
+        hint by which actor placement keeps an actor's turns beside its
+        records."""
+        if self.local_member is None:
+            return 1.0
+        idx = self.router.shard_of(key)
+        leader_of = getattr(self._shards[idx], "leader_member", None)
+        owner = leader_of() if leader_of is not None else self.placement.assignment.get(idx)
+        if owner is None:
+            return 1.0
+        return 1.0 if owner == self.local_member else 0.0
 
     # -- placement: migration and split --------------------------------------
 

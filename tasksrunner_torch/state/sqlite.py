@@ -87,7 +87,7 @@ from tasksrunner_torch.errors import (
 )
 from tasksrunner_torch.ids import hex8
 from tasksrunner_torch.metrics import metrics
-from tasksrunner_torch.state.base import QueryResponse, StateItem, TransactionOp
+from tasksrunner_torch.state.base import ABSENT_ETAG, QueryResponse, StateItem, TransactionOp
 from tasksrunner_torch.state.query import page_window, sort_clauses, validate_filter
 from tasksrunner_torch.tracing import current_trace
 
@@ -364,9 +364,10 @@ class SqliteStateStore:
         return 0
 
     @staticmethod
-    def _stored_etag(cur: sqlite3.Cursor, key: str) -> str | None:
+    def _stored_etag(cur: sqlite3.Cursor, key: str) -> str:
+        """The key's etag; :data:`ABSENT_ETAG` for a key not stored."""
         row = cur.execute("SELECT etag FROM state WHERE key = ?", (key,)).fetchone()
-        return None if row is None else row[0]
+        return ABSENT_ETAG if row is None else row[0]
 
     def _apply_set(self, cur, key: str, doc: str, etag: str | None,
                    mutations: list[tuple], alloc) -> str:
@@ -382,7 +383,7 @@ class SqliteStateStore:
         stored = self._stored_etag(cur, key)
         if etag is not None and stored != etag:
             raise EtagMismatch(f"etag mismatch for key {key!r}")
-        if stored is None:
+        if stored == ABSENT_ETAG:
             return False
         cur.execute("DELETE FROM state WHERE key = ?", (key,))
         mutations.append(("delete", key))

@@ -77,6 +77,16 @@ def current_trace() -> TraceContext | None:
     return _current.get()
 
 
+def current_or_new() -> TraceContext:
+    """The ambient context, or a new root installed as the ambient one
+    when there is none (the actor turn's and the forward hop's parent)."""
+    ctx = _current.get()
+    if ctx is None:
+        ctx = TraceContext.new()
+        _current.set(ctx)
+    return ctx
+
+
 def parse_baggage(header: str | None) -> dict:
     """A ``baggage`` header (``k=v,k2=v2``) as a dict: malformed items
     skipped, at most :data:`MAX_BAGGAGE_ITEMS` kept."""

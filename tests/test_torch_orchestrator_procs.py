@@ -10,7 +10,7 @@ by its own time limit:
   launch counts, and leaves the registry empty;
 * the admin verbs through the command line (``scale``, ``update``,
   ``restart``, ``logs``, ``revisions``, ``ps``), the merged metrics, a
-  trace no replica recorded, ``/admin/actors`` not ported yet,
+  trace no replica recorded, ``/admin/actors`` over a replica without actors,
   ``/admin/placement``'s one-shot sweep and ``shards``, a second
   orchestrator fenced out, a standby that
   adopts the replica an abandoned orchestrator left running, and
@@ -261,9 +261,9 @@ async def test_admin_verbs_fencing_and_adoption(tmp_path, monkeypatch, capsys):
             status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/traces/abc")
             assert (status, json.loads(body)) == (
                 200, {"trace_id": "abc", "replicas": 1, "spans": []})
+            # the actor gate is off: the replica's sidecar has no /v1.0/actors
             status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/actors")
-            assert (status, json.loads(body)["error"]) == (
-                501, "/admin/actors is not ported yet (ROADMAP A21)")
+            assert (status, json.loads(body)) == (200, {"placement": [], "replicas": []})
             # TASKSRUNNER_RESHARD off: one sweep for the request, over a
             # replica whose app has no sharded store
             status, _, body = await http_request("127.0.0.1", port, "GET", "/admin/placement")
